@@ -90,7 +90,7 @@ def test_select_kth_bit_matches_brute_force():
 
 @pytest.mark.parametrize("n", list(range(5, 25)))
 def test_bit_reset_matches_jax(n):
-    assert_same_state(_reset_j(n, 3), tbit.bit_reset(n, 3), f"n={n}")
+    assert_same_state(_reset_j(n, 3), tbit.bit_reset(n, 3, "cpu"), f"n={n}")
 
 
 def _legal_actions(bs, n):
@@ -107,7 +107,7 @@ def test_step_bits_matches_jax_every_move(n):
     swaps = 0
     for game in range(8):
         jbs = _reset_j(n, 1)
-        tbs = tbit.bit_reset(n, 1)
+        tbs = tbit.bit_reset(n, 1, "cpu")
         while int(tbs.result[0]) == geo.RESULT_OPEN:
             if int(tbs.move_counter[0]) == 1 and game % 4 == 0:
                 a = int(tbs.move_one[0])  # the swap: move 2 = move 1
@@ -126,7 +126,7 @@ def test_step_bits_matches_jax_every_move(n):
 def test_sample_bits_matches_jax():
     n, b = 8, 512
     jbs, _ = jbit.bit_random_rollout(4, n, 17, _reset_j(n, b))
-    tbs = tbit.bitstate_from_numpy(jax_leaves(jbs))
+    tbs = tbit.bitstate_from_numpy(jax_leaves(jbs), "cpu")
     noise = np.random.default_rng(3).integers(0, 2**32, b, dtype=np.uint64)
     want = np.asarray(_sample_j(jbs, n, jnp.asarray(noise.astype(np.uint32))))
     got = tbit.sample_bits(tbs, n, torch.from_numpy(noise.astype(np.int64)))
@@ -136,7 +136,7 @@ def test_sample_bits_matches_jax():
 def test_bit_step_auto_reset_matches_jax():
     n, b = 5, 256
     jbs, _ = jbit.bit_random_rollout(6, n, 11, _reset_j(n, b))
-    tbs = tbit.bitstate_from_numpy(jax_leaves(jbs))
+    tbs = tbit.bitstate_from_numpy(jax_leaves(jbs), "cpu")
     noise = torch.from_numpy(
         np.random.default_rng(5).integers(0, 2**32, b, dtype=np.uint64).astype(np.int64)
     )
@@ -157,7 +157,7 @@ def test_bit_step_auto_reset_matches_jax():
 )
 def test_bit_random_rollout_matches_jax(n, b, steps, seed):
     jf, js = jbit.bit_random_rollout(seed, n, steps, _reset_j(n, b))
-    tf, ts = tbit.bit_random_rollout(seed, n, steps, tbit.bit_reset(n, b))
+    tf, ts = tbit.bit_random_rollout(seed, n, steps, tbit.bit_reset(n, b, "cpu"))
     assert_same_state(jf, tf)
     assert int(ts["episodes"]) == int(js["episodes"]) > 0
     np.testing.assert_array_equal(ts["results"].numpy(), np.asarray(js["results"]))
@@ -165,7 +165,7 @@ def test_bit_random_rollout_matches_jax(n, b, steps, seed):
 
 def test_sample_bits_legal_and_uniform():
     n, b = 5, 4096
-    bs = tbit.bit_reset(n, b)
+    bs = tbit.bit_reset(n, b, "cpu")
     noise = tbit._mul_u32(torch.arange(b, dtype=torch.int64), 0x9E3779B9)
     acts = tbit.sample_bits(bs, n, noise).numpy()
     legal_ids = np.nonzero(tbit.bit_legal_mask_flat(bs, 0, n)[:, 0].numpy())[0]
@@ -180,7 +180,7 @@ def test_sample_bits_legal_and_uniform():
 def test_bit_rollout_states_stay_valid():
     # after a rollout every env's state keeps the engine's invariants
     n, b, steps = 5, 32, 40
-    final, _ = tbit.bit_random_rollout(9, n, steps, tbit.bit_reset(n, b))
+    final, _ = tbit.bit_random_rollout(9, n, steps, tbit.bit_reset(n, b, "cpu"))
     p = n + 2 * geo.PAD
     red = tbit._unpack_bool(final.red, p).numpy()
     blue = tbit._unpack_bool(final.blue, p).numpy()
@@ -219,11 +219,11 @@ def test_bit_rollout_states_stay_valid():
 def test_numpy_converters_round_trip():
     jbs, _ = jbit.bit_random_rollout(2, 5, 7, _reset_j(5, 16))
     leaves = jax_leaves(jbs)
-    back = tbit.bitstate_to_numpy(tbit.bitstate_from_numpy(leaves))
+    back = tbit.bitstate_to_numpy(tbit.bitstate_from_numpy(leaves, "cpu"))
     for a, b in zip(leaves, back):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
     bad = list(leaves)
     bad[0] = bad[0] | np.uint32(1 << 31)
     with pytest.raises(ValueError, match="bit 31"):
-        tbit.bitstate_from_numpy(bad)
+        tbit.bitstate_from_numpy(bad, "cpu")

@@ -37,7 +37,7 @@ def jax_rollout_record(n, batch, steps, seed):
         "batch": batch,
         "num_steps": steps,
         "seed": seed,
-        "digest": tbit.state_digest(tbit.bitstate_from_numpy(leaves)),
+        "digest": tbit.state_digest(tbit.bitstate_from_numpy(leaves, "cpu")),
         "episodes": int(stats["episodes"]),
         "results": [int(r) for r in np.asarray(stats["results"])],
     }
@@ -55,14 +55,14 @@ def test_fixture_matches_jax(case):
 def test_port_digest_matches_jax_small():
     n, batch, steps, seed = 5, 128, 40, 2
     want = jax_rollout_record(n, batch, steps, seed)
-    final, stats = tbit.bit_random_rollout(seed, n, steps, tbit.bit_reset(n, batch))
+    final, stats = tbit.bit_random_rollout(seed, n, steps, tbit.bit_reset(n, batch, "cpu"))
     assert tbit.state_digest(final) == want["digest"]
     assert int(stats["episodes"]) == want["episodes"] > 0
     assert stats["results"].tolist() == want["results"]
 
 
 def test_digest_sees_every_leaf():
-    bs = tbit.bit_reset(5, 4)
+    bs = tbit.bit_reset(5, 4, "cpu")
     base = tbit.state_digest(bs)
     for i in range(tbit.NUM_LEAVES):
         leaves = [x.clone() for x in tbit.bitstate_leaves(bs)]

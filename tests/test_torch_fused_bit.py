@@ -41,7 +41,7 @@ def assert_same(jax_out, port_out):
 )
 def test_wrapper_matches_jax_kernel(n, b, tile, steps, seed):
     want = jax_fused(seed, n, steps, _reset_j(n, b), tile=tile, interpret=True)
-    got = fbr.fused_bit_rollout(seed, n, steps, tbit.bit_reset(n, b))
+    got = fbr.fused_bit_rollout(seed, n, steps, tbit.bit_reset(n, b, "cpu"))
     assert_same(want, got)
     assert int(got[1]["episodes"]) > 0 or n >= 12
 
@@ -51,7 +51,7 @@ def test_wrapper_multi_tile_and_ragged_batch(n, b, steps, seed):
     # 512 envs span four 128-env TPU tiles; 200 is no multiple of 128: the
     # noise must follow the global env index either way
     want = jbit.bit_random_rollout(seed, n, steps, _reset_j(n, b))
-    got = fbr.fused_bit_rollout(seed, n, steps, tbit.bit_reset(n, b))
+    got = fbr.fused_bit_rollout(seed, n, steps, tbit.bit_reset(n, b, "cpu"))
     assert_same(want, got)
     assert int(got[1]["episodes"]) > 0
 
@@ -62,7 +62,7 @@ def test_emit_obs_matches_jax_kernel_and_xla_wire():
         seed, n, steps, _reset_j(n, b), tile=tile, interpret=True, emit_obs=True
     )
     got = fbr.fused_bit_rollout(
-        seed, n, steps, tbit.bit_reset(n, b), emit_obs=True
+        seed, n, steps, tbit.bit_reset(n, b, "cpu"), emit_obs=True
     )
     assert_same(jk, got)
     assert int(got[1]["episodes"]) > 0  # the stream crosses auto-resets
@@ -75,13 +75,13 @@ def test_emit_obs_matches_jax_kernel_and_xla_wire():
     ref = np.asarray(wire).reshape(steps, b, 12, p).transpose(0, 2, 3, 1)
     np.testing.assert_array_equal(obs.numpy(), ref.astype(np.int64))
     # the port's own emitter gives the same wire
-    _, _, twire = tbit.bit_rollout_emit_obs(seed, n, steps, tbit.bit_reset(n, b))
+    _, _, twire = tbit.bit_rollout_emit_obs(seed, n, steps, tbit.bit_reset(n, b, "cpu"))
     np.testing.assert_array_equal(twire.numpy(), np.asarray(wire).astype(np.int64))
 
 
 def test_wrapper_leaves_input_untouched_and_counts_no_cpu_launch():
     before = fbr.fused_bit_rollout.launches
-    bs = tbit.bit_reset(5, 64)
+    bs = tbit.bit_reset(5, 64, "cpu")
     copy = [x.clone() for x in tbit.bitstate_leaves(bs)]
     fbr.fused_bit_rollout(1, 5, 20, bs)
     assert fbr.fused_bit_rollout.launches == before == 0
@@ -90,7 +90,7 @@ def test_wrapper_leaves_input_untouched_and_counts_no_cpu_launch():
 
 
 def test_no_fallback_off_cpu():
-    bs = tbit.bit_reset(5, 8)
+    bs = tbit.bit_reset(5, 8, "cpu")
     # the kernel entry takes CUDA tensors only
     with pytest.raises(ValueError, match="CUDA tensors"):
         fbr._launch(0, 5, 4, bs, False)
@@ -112,7 +112,7 @@ def test_failed_build_raises(tmp_path, monkeypatch):
 
 
 def test_state_checks():
-    bs = tbit.bit_reset(5, 8)
+    bs = tbit.bit_reset(5, 8, "cpu")
     fbr._check_state(bs, 5)
     with pytest.raises(ValueError, match="planes must be"):
         fbr._check_state(bs, 6)

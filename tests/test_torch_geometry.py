@@ -79,8 +79,9 @@ def _imported_modules(path):
 
 
 def test_port_source_imports_no_jax():
-    files = sorted(PORT.rglob("*.py"))
-    assert len(files) >= 8
+    # the package and the script that drives it on the card
+    files = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]
+    assert len(files) >= 12
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -90,14 +91,25 @@ def test_port_source_imports_no_jax():
 
 
 def test_importing_port_loads_no_jax():
+    # every module of the port, found on disk so a new one is never missed;
+    # importing them loads and builds no kernel
+    modules = sorted(
+        "twixt_for_open_spiel_tpu_torch.ops." + path.stem
+        for path in (PORT / "ops").glob("*.py") if path.stem != "__init__"
+    )
+    assert len(modules) >= 10
     code = (
-        "import sys\n"
-        "import twixt_for_open_spiel_tpu_torch\n"
-        "from twixt_for_open_spiel_tpu_torch.ops import (\n"
-        "    _cuda, bitboard, fused_bit_rollout, geometry, observe, state)\n"
+        "import importlib, sys\n"
+        "import twixt_for_open_spiel_tpu_torch as tw\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert {'State', 'reset', 'step', 'returns', 'is_terminal',\n"
+        "        'observation', 'geometry'} <= set(dir(tw))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'twixt_for_open_spiel_tpu')]\n"
         "assert not bad, bad\n"
+        "from twixt_for_open_spiel_tpu_torch.ops import _cuda\n"
+        "assert _cuda.load.cache_info().currsize == 0\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=PORT.parent,

@@ -25,14 +25,15 @@ twixtboard.cc:192-207, turn logic twixt.h:93-104.
 
 from __future__ import annotations
 
-import hashlib
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from twixt_for_open_spiel_tpu_torch.ops import geometry as geo
+from twixt_for_open_spiel_tpu_torch.ops import state as canonical
 from twixt_for_open_spiel_tpu_torch.ops.state import (
+    State,
     padded_size,
     swap_rotate_action,
 )
@@ -94,7 +95,7 @@ def bitstate_from_leaves(leaves) -> BitState:
     )
 
 
-def bitstate_from_numpy(leaves, device="cpu") -> BitState:
+def bitstate_from_numpy(leaves, device="cuda") -> BitState:
     """A JAX ``BitState``, given as numpy arrays in ``tree_leaves`` order,
     as a port ``BitState`` on ``device`` (u32 planes -> int32, bool
     ``swapped`` -> int32, compid stays int16)."""
@@ -124,15 +125,10 @@ def bitstate_to_numpy(bs: BitState) -> list:
 
 
 def state_digest(bs: BitState) -> str:
-    """sha256 of every leaf in field order, cast to int64 (little-endian),
-    C order, in the ``[..., B]`` layout.  Values, not dtypes, enter the
-    digest, so a JAX state carried over by :func:`bitstate_from_numpy`
-    digests the same as the port's."""
-    h = hashlib.sha256()
-    for leaf in bitstate_leaves(bs):
-        a = leaf.detach().to("cpu", _I64).contiguous().numpy()
-        h.update(a.astype("<i8", copy=False).tobytes())
-    return h.hexdigest()
+    """sha256 of every leaf in field order (``state.state_digest``), in the
+    ``[..., B]`` layout, so a JAX state carried over by
+    :func:`bitstate_from_numpy` digests the same as the port's."""
+    return canonical.state_digest(bitstate_leaves(bs))
 
 
 def _pack_bool(board: torch.Tensor) -> torch.Tensor:
@@ -172,36 +168,87 @@ def expand_planes(planes4: tuple) -> tuple:
     return tuple(out)
 
 
-def bit_reset(board_size: int, batch: int, device="cpu") -> BitState:
-    """Initial BitState of ``batch`` envs (reference Board ctor,
-    twixtboard.cc:168-174), from the numpy tables of ``geometry``."""
-    n = board_size
-    p = padded_size(n)
-    m = geo.board_masks(n)
+def from_state(state: State) -> BitState:
+    """Pack a canonical State into bitplanes (conversion, not hot): the
+    canonical east link / blocked bits, the inner-board compid, and
+    ``swapped`` as int32."""
+    color = state.color
 
-    def plane(board):
-        return _pack_bool(torch.from_numpy(np.ascontiguousarray(board)))
+    def bits(board, k):
+        return _pack_bool(((board >> k) & 1) != 0)
 
-    zero = torch.zeros(p, dtype=_I32)
-    init_flags = torch.from_numpy(m["init_flags"].astype(np.int32))
-    one_env = BitState(
-        red=zero,
-        blue=zero,
-        links=(zero,) * 4,
-        blocked=(zero,) * 4,
-        legal=(plane(m["legal0"]), plane(m["legal1"])),
-        flags=tuple(_pack_bool(((init_flags >> b) & 1) != 0) for b in range(4)),
-        compid=torch.from_numpy(
-            m["init_compid"][geo.PAD : geo.PAD + n, geo.PAD : geo.PAD + n].copy()
-        ),
-        current_player=torch.tensor(geo.RED, dtype=_I32),
-        move_counter=torch.tensor(0, dtype=_I32),
-        move_one=torch.tensor(-1, dtype=_I32),
-        swapped=torch.tensor(0, dtype=_I32),
-        result=torch.tensor(geo.RESULT_OPEN, dtype=_I32),
+    n = color.shape[0] - 2 * geo.PAD
+    return BitState(
+        red=_pack_bool(color == geo.COLOR_RED),
+        blue=_pack_bool(color == geo.COLOR_BLUE),
+        links=tuple(bits(state.links, d) for d in range(4)),
+        blocked=tuple(bits(state.blocked, d) for d in range(4)),
+        legal=(_pack_bool(state.legal[0]), _pack_bool(state.legal[1])),
+        flags=tuple(bits(state.flags, b) for b in range(4)),
+        compid=state.compid[geo.PAD : geo.PAD + n, geo.PAD : geo.PAD + n],
+        current_player=state.current_player,
+        move_counter=state.move_counter,
+        move_one=state.move_one,
+        swapped=state.swapped.to(_I32),
+        result=state.result,
     )
+
+
+def to_state(bs: BitState, board_size: int) -> State:
+    """Unpack to the canonical State (for observation, rendering, parity):
+    west link / blocked bits come back by :func:`expand_planes`, the halo
+    and corners from the constant reset state."""
+    p = padded_size(board_size)
+    n = board_size
+    red = _unpack_bool(bs.red, p)
+    blue = _unpack_bool(bs.blue, p)
+    init = canonical.reset(board_size, bs.red.device)
+    tail = (1,) * (red.ndim - 2)
+    on_board = (init.color != geo.COLOR_OFFBOARD).reshape((p, p) + tail)
+    color = torch.where(
+        red,
+        geo.COLOR_RED,
+        torch.where(
+            blue,
+            geo.COLOR_BLUE,
+            torch.where(on_board, geo.COLOR_EMPTY, geo.COLOR_OFFBOARD),
+        ),
+    ).to(torch.int8)
+
+    def unpack_bits(planes):
+        acc = torch.zeros(color.shape, dtype=torch.uint8, device=color.device)
+        for d, plane in enumerate(planes):
+            acc = acc | (_unpack_bool(plane, p).to(torch.uint8) << d)
+        return acc
+
+    # the inner compid pasted into the constant halo (halo ids are -1 and
+    # never change)
+    compid = init.compid.reshape((p, p) + tail).expand(
+        (p, p) + tuple(bs.compid.shape[2:])
+    ).clone()
+    compid[geo.PAD : geo.PAD + n, geo.PAD : geo.PAD + n] = bs.compid
+    return State(
+        color=color,
+        links=unpack_bits(expand_planes(bs.links)),
+        blocked=unpack_bits(expand_planes(bs.blocked)),
+        compid=compid,
+        flags=unpack_bits(bs.flags),
+        legal=torch.stack([_unpack_bool(bs.legal[0], p),
+                           _unpack_bool(bs.legal[1], p)]),
+        current_player=bs.current_player,
+        move_counter=bs.move_counter,
+        move_one=bs.move_one,
+        swapped=bs.swapped != 0,
+        result=bs.result,
+    )
+
+
+def bit_reset(board_size: int, batch: int, device="cuda") -> BitState:
+    """Initial BitState of ``batch`` envs (reference Board ctor,
+    twixtboard.cc:168-174): the packed canonical reset, as in JAX."""
+    one_env = from_state(canonical.reset(board_size, device))
     return bitstate_from_leaves(
-        x.unsqueeze(-1).expand(x.shape + (batch,)).contiguous().to(device)
+        x.unsqueeze(-1).expand(x.shape + (batch,)).contiguous()
         for x in bitstate_leaves(one_env)
     )
 
@@ -398,7 +445,7 @@ def bit_legal_mask_flat(bs: BitState, player, board_size: int) -> torch.Tensor:
     sel = torch.where(player == 0, bs.legal[0], bs.legal[1])
     core = sel[geo.PAD : geo.PAD + n]  # [n, B]
     ys = torch.arange(geo.PAD, geo.PAD + n, dtype=_I32, device=sel.device)
-    bits = ((core.unsqueeze(1) >> ys.reshape(1, n, 1)) & 1) != 0
+    bits = ((core.unsqueeze(1) >> ys.reshape((1, n) + (1,) * (core.ndim - 1))) & 1) != 0
     return bits.reshape((n * n,) + core.shape[1:])
 
 

@@ -114,13 +114,6 @@ def _kernel():
     return fn
 
 
-def _cuda_error(code: int) -> str:
-    fn = _cuda.load("fused_bit_rollout").twixt_cuda_error_string
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_char_p
-    return fn(code).decode()
-
-
 def _launch(seed: int, board_size: int, num_steps: int, bs: BitState,
             emit_obs: bool):
     if bs.red.device.type != "cuda":
@@ -162,7 +155,8 @@ def _launch(seed: int, board_size: int, num_steps: int, bs: BitState,
         )
         if rc != 0:
             raise RuntimeError(
-                f"fused_bit_rollout kernel launch failed: {_cuda_error(rc)}"
+                "fused_bit_rollout kernel launch failed: "
+                + _cuda.error_string("fused_bit_rollout", rc)
             )
         fused_bit_rollout.launches += 1
 

@@ -1,10 +1,12 @@
-"""The packed observation wire (``twixt_for_open_spiel_tpu/ops/observe.py``).
+"""Observation tensors and the packed observation wire
+(``twixt_for_open_spiel_tpu/ops/observe.py``).
 
-The learner's wire, as in the JAX module: the 12 observation planes
-(reference twixt.cc:76-132) as packed column words straight from the
-engine's bitplanes, with the mover's legal plane riding in the words' free
-low bits, and the decoders a learner applies.  Words are int32 here and
-bit-equal to the JAX u32 words (no word ever has bit 31 set).
+The 12 observation planes (reference twixt.cc:76-132) as the float tensor
+``[12, size, size-2, *B]`` from the canonical state (``observation``) or
+straight from the bitplanes (``bit_observation``), and as the learner's
+wire: packed column words with the mover's legal plane riding in the
+words' free low bits, and the decoders a learner applies.  Words are int32
+here and bit-equal to the JAX u32 words (no word ever has bit 31 set).
 
 Plane semantics: plane 0 / 6 = peg of that colour with no links, planes
 1+d / 7+d = canonical east link in direction d, plane 5 / 11 = blocked east
@@ -17,9 +19,69 @@ from __future__ import annotations
 import torch
 
 from twixt_for_open_spiel_tpu_torch.ops import geometry as geo
-from twixt_for_open_spiel_tpu_torch.ops.bitboard import _mover_legal, expand_planes
+from twixt_for_open_spiel_tpu_torch.ops.bitboard import (
+    _mover_legal,
+    _unpack_bool,
+    expand_planes,
+)
+from twixt_for_open_spiel_tpu_torch.ops.state import padded_size
 
 _I32 = torch.int32
+
+
+def _red_view(arr: torch.Tensor, size: int) -> torch.Tensor:
+    """[P, P, *B] board -> [size, size-2, *B]: out[r, c] = core[c+1, size-1-r]."""
+    core = arr[geo.PAD : geo.PAD + size, geo.PAD : geo.PAD + size]
+    return core.transpose(0, 1).flip(0)[:, 1 : size - 1]
+
+
+def _blue_view(arr: torch.Tensor, size: int) -> torch.Tensor:
+    """[P, P, *B] board -> [size, size-2, *B]: out[r, c] = core[size-1-r, size-2-c]."""
+    core = arr[geo.PAD : geo.PAD + size, geo.PAD : geo.PAD + size]
+    return core.flip(0, 1)[:, 1 : size - 1]
+
+
+def observation(state, board_size: int) -> torch.Tensor:
+    """float32 [12, size, size-2, *B] observation of the canonical state;
+    the same for both observing players (reference twixt.cc:101-132)."""
+    planes = []
+    for color_val, view in ((geo.COLOR_RED, _red_view), (geo.COLOR_BLUE, _blue_view)):
+        is_color = view(state.color == color_val, board_size)
+        links = view(state.links, board_size)
+        blocked = view(state.blocked, board_size)
+        planes.append(is_color & (links == 0))  # plane 0 / 6
+        for d in range(4):  # planes 1-4 / 7-10: NNE, ENE, ESE, SSE
+            planes.append(is_color & (((links >> d) & 1) != 0))
+        planes.append(is_color & ((blocked & 15) != 0))  # plane 5 / 11
+    return torch.stack(planes).to(torch.float32)
+
+
+def observation_nchw(state, board_size: int) -> torch.Tensor:
+    """Batched observation in the network's layout: [B, 12, size, size-2]."""
+    return observation(state, board_size).movedim(-1, 0)
+
+
+def bit_observation(bs, board_size: int, dtype=torch.float32) -> torch.Tensor:
+    """The observation straight from the bitplanes, [12, size, size-2, *B]
+    in ``dtype`` (binary planes, so bfloat16 is exact): the canonical east
+    link planes, "no links" from the 8 expanded directions, and "blocked
+    east" as the OR of the canonical blocked planes."""
+    p = padded_size(board_size)
+    any_link = bs.links[0]
+    for plane in expand_planes(bs.links)[1:]:
+        any_link = any_link | plane
+    blocked_e = bs.blocked[0] | bs.blocked[1] | bs.blocked[2] | bs.blocked[3]
+    has_links = _unpack_bool(any_link, p)
+    blocked = _unpack_bool(blocked_e, p)
+    east = [_unpack_bool(plane, p) for plane in bs.links]
+    planes = []
+    for color_plane, view in ((bs.red, _red_view), (bs.blue, _blue_view)):
+        c = view(_unpack_bool(color_plane, p), board_size)
+        planes.append(c & ~view(has_links, board_size))  # plane 0 / 6
+        for d in range(4):  # planes 1-4 / 7-10
+            planes.append(c & view(east[d], board_size))
+        planes.append(c & view(blocked, board_size))  # plane 5 / 11
+    return torch.stack(planes).to(dtype)
 
 
 def bit_observation_packed_lanes(bs, board_size: int) -> torch.Tensor:
@@ -114,3 +176,14 @@ def unpack_legal_words_flat(words: torch.Tensor, board_size: int) -> torch.Tenso
     ys = torch.arange(pad, pad + n, dtype=_I32, device=words.device)
     bits = ((core.unsqueeze(-1) >> ys) & 1) != 0  # [..., n, n]
     return bits.reshape(bits.shape[:-2] + (n * n,))
+
+
+def bit_observation_nchw(bs, board_size: int, dtype=torch.float32) -> torch.Tensor:
+    """Batched bitboard observation in the network's layout
+    [B, 12, size, size-2]: the packed planes, one packed transpose, then
+    :func:`unpack_observation_nchw`.  Other batch shapes take the unpacked
+    path, as in JAX."""
+    if bs.red.ndim != 2:
+        return bit_observation(bs, board_size, dtype).movedim(-1, 0)
+    pk = bit_observation_packed_lanes(bs, board_size).permute(2, 0, 1)
+    return unpack_observation_nchw(pk, board_size, dtype)
