@@ -25,8 +25,9 @@ non-zero exit.
 
   the canonical-engine rollout (K3: ``fused_random_rollout``):
   6. the kernel is bit-equal to its plain version in every state leaf,
-     ``actions`` and ``results``, full width (board 24, batch 4096) and a
-     second tile included; a batch that is no multiple of the tile raises;
+     ``actions`` and ``results``, full width (board 24, batch 4096), a
+     second tile, a single env and a batch whose last block of envs is
+     ragged included; a batch that is no multiple of the tile raises;
   7. the JAX anchor: digests of final state and actions, and the result
      histogram, equal ``tests/fixtures/torch_port_tensor_rollout_digests.json``;
   8. replay: the headline launch's recorded actions, replayed through the
@@ -40,7 +41,10 @@ non-zero exit.
   10. the kernel equals its plain version at the obs stream's shape (board
       24), and its store rate beside the card's 3.35 TB/s, the obs
       stream's rate from phase 5 and PyTorch's own broadcast copy
-      (``expand().contiguous()``) of the same output.
+      (``expand().contiguous()``) of the same output: the kernel/library
+      ratio and the kernel's share of its bound.  Each of the three is timed
+      over runs of launches back to back (a launch takes about 0.1 ms, near
+      the wrapper's host time).
 
 The second-to-last line is a JSON object describing the kernels, each with
 its time, its plain version's time and its bound (the least time the card
@@ -106,8 +110,14 @@ TENSOR_EQUALITY_CASES = [
     (12, 4096, 64, 7, 256),
     (24, 4096, 32, 1, 256),  # full width
     (8, 1024, 64, 5, 128),
+    (5, 1, 200, 11, 1),  # a single env: one warp
+    (8, 1088, 64, 9, 64),
+    (8, 1003, 64, 9, 17),  # 17 * 59 envs: no multiple of any envs per block <= 16 but 1
 ]
 TENSOR_TILE = 256
+# K3's headline bound when its kernel ran one thread per env (PERF.md), to
+# show that the bound still counts the same work
+THREAD_PER_ENV_K3_BOUND_MS = 0.5319
 ROLLOUT_ROW = (12, 4096, 8)  # random_rollout: board, batch, steps
 
 # --- the store-stream probe (K4): the obs stream's shape at board 24 --------
@@ -158,6 +168,24 @@ def timed_ms(fn, reps: int) -> list:
     return out
 
 
+def back_to_back_ms(fn, reps: int, runs: int = 5) -> list:
+    """Milliseconds a call of ``fn`` in each of ``runs`` runs of ``reps``
+    calls back to back between one pair of CUDA events: the host enqueues
+    the next call while the card runs one, so a short kernel's time is not
+    the wrapper's host time."""
+    out = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(stop) / reps)
+    return out
+
+
 def bound(nbytes: float, ops: dict):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and the
     thread instructions ``ops`` (per class) over their issue rates."""
@@ -197,11 +225,16 @@ def sass_counts() -> dict:
     hashes = ten.blocks_with(is_hash, draw.body)
     require(len(hashes) == 1 and sum(map(is_hash, ten.instructions(hashes[0]))) == 1,
             "K3's draw loop hashes one cell a pass")
+    step = ten.largest_loop()
+    require(draw.body < step.body, "K3's draw loop lies inside its step loop")
+    butterfly = sum(i.opcode.startswith("SHFL.BFLY") for b in step.body
+                    for i in ten.instructions(b))
+    require(butterfly >= 10, "K3's step reduces the draw over the warp (5 rounds of 2 shuffles)")
     counts = {
         "K1 step": bit.iteration(bit.largest_loop()),
         "K2 step": bit.iteration(bit.largest_loop(), via=obs.header),
         "K2 obs row": bit.iteration(obs),
-        "K3 step": ten.iteration(ten.largest_loop()),
+        "K3 step": ten.iteration(step),
         "K3 cell": ten.iteration(draw),
         "K3 legal cell": ten.iteration(draw, via=hashes[0]),
     }
@@ -234,7 +267,8 @@ def tensor_rollout_bound(sass: dict, n: int, batch: int, steps: int, legal_cells
     """K3: the kernel's int32 state ([7,P,P,B] cells, [5,B] scalars) read
     and written once, actions and results written once.  Per env-step the
     SASS count of one step and of P*P-1 more cells of the draw's scan (the
-    step's count may hold one); per legal cell drawn (``legal_cells``,
+    step's count may hold one; the warp's lanes share the cells, and each
+    is counted once); per legal cell drawn (``legal_cells``,
     counted from this run's replay; one a step may be the step's) what a
     legal cell issues beyond the least cell."""
     p = n + 2 * geo.PAD
@@ -366,13 +400,14 @@ def bitboard_path(dev, sass: dict) -> dict:
             "library_ms": None,
         },
         "obs_bytes_per_s": obs_bytes / obs_ms * 1e3,
+        "rates": rates,
     }
 
 
-def tensor_path(dev, sass: dict) -> dict:
+def tensor_path(dev, sass: dict, k1_rates: dict) -> dict:
     """Phases 6-9: K3 against the plain version, the JAX anchor, the replay,
-    rates and the plain random_rollout."""
-    max_err = 0
+    rates (beside K1's, ``k1_rates``) and the plain random_rollout."""
+    max_err, ragged = 0, 0
     for n, b, steps, seed, tile in TENSOR_EQUALITY_CASES:
         s0 = troll.batch_reset(n, b, dev)
         got = ftr.fused_random_rollout(seed, n, steps, s0, tile=tile)
@@ -381,9 +416,13 @@ def tensor_path(dev, sass: dict) -> dict:
         err = max_abs_diff(tensor_pairs(got, want))
         max_err = max(max_err, err)
         episodes = int(ftr.rollout_stats(got[2])["episodes"])
-        print(f"[K3 equal] n={n} batch={b} steps={steps} seed={seed} tile={tile}: "
+        envs = ftr.envs_per_block(n, b, dev)
+        ragged += b % envs != 0
+        print(f"[K3 equal] n={n} batch={b} steps={steps} seed={seed} tile={tile} "
+              f"envs/block={envs} (last block {b % envs or envs} envs): "
               f"max_abs_err={err} episodes={episodes}")
         require(err == 0, f"K3 kernel != plain at n={n} batch={b} tile={tile}")
+    require(ragged > 0, "a case whose last block of envs is ragged")
     try:
         ftr.fused_random_rollout(0, 8, 4, troll.batch_reset(8, 4096 + 64, dev))
     except ValueError as e:
@@ -435,9 +474,11 @@ def tensor_path(dev, sass: dict) -> dict:
         ms = timed_ms(lambda: ftr.fused_random_rollout(0, n, RATE_STEPS, s0, tile=TENSOR_TILE),
                       RATE_REPS)
         rates[(n, b)] = statistics.median(ms)
-        print(f"[K3 rate] n={n} batch={b} steps={RATE_STEPS} tile={TENSOR_TILE}: "
+        print(f"[K3 rate] n={n} batch={b} steps={RATE_STEPS} tile={TENSOR_TILE} "
+              f"envs/block={ftr.envs_per_block(n, b, dev)}: "
               f"median {rates[(n, b)]} ms of {ms} -> "
-              f"{b * RATE_STEPS / rates[(n, b)] * 1e3} env-steps/s")
+              f"{b * RATE_STEPS / rates[(n, b)] * 1e3} env-steps/s; "
+              f"K3/K1 time {rates[(n, b)] / k1_rates[(n, b)]}")
 
     n, b, steps = ROLLOUT_ROW
     g = torch.Generator(device=dev).manual_seed(0)
@@ -464,7 +505,9 @@ def tensor_path(dev, sass: dict) -> dict:
     print(f"[K3 rate] plain n={n} batch={b} steps={RATE_STEPS}: {plain_ms} ms -> "
           f"{b * RATE_STEPS / plain_ms * 1e3} env-steps/s")
     bound_ms, by = tensor_rollout_bound(sass, n, b, RATE_STEPS, legal_cells)
-    print(f"[K3 bound] n={n} batch={b} steps={RATE_STEPS}: {bound_ms} ms ({by})")
+    print(f"[K3 bound] n={n} batch={b} steps={RATE_STEPS}: {bound_ms} ms ({by}); "
+          f"one thread per env: {THREAD_PER_ENV_K3_BOUND_MS} ms, ratio "
+          f"{bound_ms / THREAD_PER_ENV_K3_BOUND_MS}")
     return {
         "name": "fused_tensor_rollout",
         "route": "cuda",
@@ -497,7 +540,7 @@ def store_path(dev, obs_bytes_per_s: float) -> dict:
     def run():
         last[0] = sk.store_skeleton(*STORE_SHAPE, device=dev)
 
-    ms = statistics.median(timed_ms(run, STORE_REPS))
+    ms = statistics.median(back_to_back_ms(run, STORE_REPS))
     require(torch.equal(last[0], want), "K4's timed output equals the plain version's")
     launches_main = sk.store_skeleton.launches
     require(launches_main > 0, "the probe path launched its kernel")
@@ -505,12 +548,12 @@ def store_path(dev, obs_bytes_per_s: float) -> dict:
             "the probe path launched only its own kernel")
 
     sk.store_skeleton_reference(*STORE_SHAPE, device=dev)  # warm-up
-    plain_ms = statistics.median(timed_ms(
+    plain_ms = statistics.median(back_to_back_ms(
         lambda: sk.store_skeleton_reference(*STORE_SHAPE, device=dev), STORE_REPS))
     # the library call: PyTorch's broadcast copy of the k+j column
     column = want[:, :1, :1].clone()
     require(torch.equal(column.expand(want.shape).contiguous(), want), "the library copy")
-    library_ms = statistics.median(timed_ms(
+    library_ms = statistics.median(back_to_back_ms(
         lambda: column.expand(want.shape).contiguous(), STORE_REPS))
     nbytes = store_bytes(*STORE_SHAPE)
     # operations: at least one 16-byte store instruction per 16 bytes
@@ -521,7 +564,8 @@ def store_path(dev, obs_bytes_per_s: float) -> dict:
           f"(card 3350 GB/s; K2's obs stream {obs_bytes_per_s / 1e9} GB/s); "
           f"plain {plain_ms} ms -> {nbytes / plain_ms / 1e6} GB/s; library "
           f"expand().contiguous() {library_ms} ms -> {nbytes / library_ms / 1e6} GB/s; "
-          f"bound {bound_ms} ms ({by})")
+          f"bound {bound_ms} ms ({by}); kernel/library {ms / library_ms}, "
+          f"share of the bound {bound_ms / ms}")
     return {
         "name": "store_skeleton",
         "route": "cuda",
@@ -554,7 +598,7 @@ def main() -> int:
     build_all()
     sass = sass_counts()
     bit = bitboard_path(dev, sass)
-    tensor = tensor_path(dev, sass)
+    tensor = tensor_path(dev, sass, bit["rates"])
     store = store_path(dev, bit["obs_bytes_per_s"])
 
     print(json.dumps({"kernels": [bit["report"], tensor, store]}))

@@ -192,6 +192,115 @@ def test_int32_working_copy_round_trips():
         assert a.dtype == b.dtype and torch.equal(a, b), name
 
 
+# --- models of the CUDA kernel's warp-per-env design (tests only) ----------
+
+WARP = 32
+# the kernel's shared-memory planes, 8 bytes a cell: color, links, blocked,
+# compid, flags in their canonical dtypes, the two legal planes as u8
+SHARED_PLANE_DTYPES = ftr._CELL_DTYPES + (torch.uint8, torch.uint8)
+
+
+def better(g, i, og, oi):
+    """The kernel's pair order: the larger g, on equal g the smaller id."""
+    return (og > g) | ((og == g) & (oi < i))
+
+
+def warp_gumbel_actions(state, n, noise, env_in_tile):
+    """The kernel's draw, over a batch: lane l takes the cells c = l (mod
+    32) in order and keeps its best (g, id) of the legal ones; then five
+    rounds of __shfl_xor_sync (offsets 16 .. 1) pick the warp's best.
+    Returns every lane's action, int32 [32, B]."""
+    p = n + 2 * geo.PAD
+    b = noise.shape[0]
+    mover = state.current_player.clamp(0, 1)
+    legal = torch.where(mover == 0, state.legal[0], state.legal[1]).reshape(p * p, b)
+    cell = torch.arange(p * p, dtype=torch.int64)
+    bits = ftr._hash_u32(
+        ftr._mul_u32(cell[:, None], 0x9E3779B9) + ftr._mul_u32(env_in_tile, 0x85EBCA6B) + noise
+    )
+    u = (bits >> 8).to(torch.int32).to(torch.float32) * (1.0 / 16777216.0)
+    g = -torch.log(-torch.log(torch.maximum(u, torch.tensor(1e-7))))
+    ids = (cell // p - geo.PAD) * n + (cell % p - geo.PAD)
+    best = torch.full((WARP, b), -torch.inf)
+    best_id = torch.full((WARP, b), ftr._BIG, dtype=torch.int64)
+    for c0 in range(0, p * p, WARP):  # one pass of every lane's loop
+        for lane in range(min(WARP, p * p - c0)):
+            c = c0 + lane
+            take = legal[c] & better(best[lane], best_id[lane], g[c], ids[c])
+            best[lane] = torch.where(take, g[c], best[lane])
+            best_id[lane] = torch.where(take, ids[c], best_id[lane])
+    lanes = torch.arange(WARP)
+    for offset in (16, 8, 4, 2, 1):
+        og, oi = best[lanes ^ offset], best_id[lanes ^ offset]
+        take = better(best, best_id, og, oi)
+        best, best_id = torch.where(take, og, best), torch.where(take, oi, best_id)
+    return best_id.to(torch.int32)
+
+
+def drawn_states(n, batch, steps, seed, tile=8):
+    """(state, noise, env_in_tile) before each draw of the plain rollout."""
+    state = troll.batch_reset(n, batch, "cpu")
+    init = tstate.reset(n, "cpu")
+    env = torch.arange(batch, dtype=torch.int64)
+    prog_seed = ftr.program_seed(seed, env, tile)
+    for k in range(steps):
+        noise = ftr._hash_u32(prog_seed + ((2654435761 * (k + 1)) & ftr._M32))
+        yield state, noise, env % tile
+        action = ftr.gumbel_actions(state, n, noise, env % tile)
+        state = ftr._reset_done(ftr.step(state, n, action), init)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("n,steps", [(5, 30), (8, 20), (12, 12), (24, 6)])
+def test_warp_draw_model_matches_gumbel_actions(n, steps, seed):
+    for state, noise, e in drawn_states(n, 8, steps, seed):
+        lanes = warp_gumbel_actions(state, n, noise, e)
+        assert (lanes == lanes[0]).all()  # the butterfly leaves it in every lane
+        assert torch.equal(lanes[0], ftr.gumbel_actions(state, n, noise, e))
+
+
+@pytest.mark.parametrize("n", [5, 8, 12, 24])
+def test_warp_draw_model_breaks_forced_ties_like_gumbel_actions(n, monkeypatch):
+    # a hash with four values: bits >> 8 in {0, 2^22, 2^23, 3 * 2^22}, so u
+    # in {1e-7, 0.25, 0.5, 0.75} and about a quarter of the legal cells
+    # share the winning g; the smallest id among them must win
+    states = list(drawn_states(n, 8, 4, 5))
+    monkeypatch.setattr(ftr, "_hash_u32", lambda x: ((x ^ (x >> 7)) & 3) << 30)
+    p = n + 2 * geo.PAD
+    cell = torch.arange(p * p, dtype=torch.int64)[:, None]
+    ties = 0
+    for state, noise, e in states:
+        want = ftr.gumbel_actions(state, n, noise, e)
+        lanes = warp_gumbel_actions(state, n, noise, e)
+        assert (lanes == lanes[0]).all()
+        assert torch.equal(lanes[0], want)
+        mover = state.current_player.clamp(0, 1)
+        legal = torch.where(mover == 0, state.legal[0], state.legal[1]).reshape(p * p, -1)
+        bits = ftr._hash_u32(
+            ftr._mul_u32(cell, 0x9E3779B9) + ftr._mul_u32(e, 0x85EBCA6B) + noise
+        )
+        scored = torch.where(legal, bits, -1)
+        ties += int(((scored == scored.amax(dim=0)) & legal).sum(dim=0).gt(1).sum())
+    assert ties > 0  # the rule was exercised
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("n", [5, 8, 12, 24])
+def test_reached_states_round_trip_through_shared_plane_dtypes(n, seed):
+    assert sum(torch.empty(0, dtype=dt).element_size() for dt in SHARED_PLANE_DTYPES) == 8
+    state = troll.batch_reset(n, 16, "cpu")
+    for k in range(3):  # states after 40, 80 and 120 steps
+        state, _, _ = ftr.fused_random_rollout(seed + k, n, 40, state, tile=8)
+        cells = ftr._cells(state)
+        for plane, dt in zip(cells, SHARED_PLANE_DTYPES):
+            assert torch.equal(plane.to(dt).to(torch.int32), plane)
+
+
+def test_launch_shape_needs_a_card():
+    with pytest.raises(ValueError, match="CUDA device"):
+        ftr.envs_per_block(8, 4096, "cpu")
+
+
 if __name__ == "__main__":
     FIXTURE.write_text(
         json.dumps({"cases": [jax_record(*c) for c in FIXTURE_CASES]}, indent=1) + "\n"

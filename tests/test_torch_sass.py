@@ -60,6 +60,32 @@ DIAMOND = listing(
 )
 
 
+# a per-lane loop over cells that hashes the set ones, then a butterfly of
+# shuffles over the warp (two rounds shown) and a vote, inside a step loop
+WARP_DRAW = listing(
+    "/*0000*/                   MOV R9, RZ ;",
+    "/*0010*/                   S2R R0, SR_LANEID ;",
+    "/*0020*/                   MOV R1, R0 ;",
+    "/*0030*/                   LDS.U8 R2, [R1] ;",
+    "/*0040*/                   ISETP.NE.AND P1, PT, R2, RZ, PT ;",
+    "/*0050*/              @!P1 BRA 0x80 ;",
+    "/*0060*/                   IMAD R3, R1, 0x7feb352d, RZ ;",
+    "/*0070*/                   FMNMX R4, R4, R3, !PT ;",
+    "/*0080*/                   IADD3 R1, R1, 0x20, RZ ;",
+    "/*0090*/                   ISETP.GE.AND P2, PT, R1, 0xc4, PT ;",
+    "/*00a0*/              @!P2 BRA 0x30 ;",
+    "/*00b0*/                   SHFL.BFLY PT, R5, R4, 0x10, 0x1f ;",
+    "/*00c0*/                   FMNMX R4, R4, R5, !PT ;",
+    "/*00d0*/                   SHFL.BFLY PT, R5, R4, 0x8, 0x1f ;",
+    "/*00e0*/                   FMNMX R4, R4, R5, !PT ;",
+    "/*00f0*/                   VOTE.ANY R6, PT, P1 ;",
+    "/*0100*/                   IADD3 R9, R9, 0x1, RZ ;",
+    "/*0110*/                   ISETP.LT.AND P3, PT, R9, 0x3e8, PT ;",
+    "/*0120*/               @P3 BRA 0x20 ;",
+    "/*0130*/                   EXIT ;",
+)
+
+
 def test_parse_reads_every_instruction():
     instrs = _sass.parse(LOOP)
     assert [i.addr for i in instrs] == list(range(0, 0x100, 0x10))
@@ -103,6 +129,48 @@ def test_each_class_takes_its_own_shortest_path():
     assert got == {"issue": 4, "int32": 1, "fp32": 0, "sfu": 0, "mem": 0}
 
 
+def test_a_loop_with_a_shuffle_reduction_after_it():
+    cfg = _sass.Cfg(_sass.parse(WARP_DRAW))
+    is_hash = lambda i: 0x7FEB352D in i.immediates()  # noqa: E731
+    draw, step = cfg.innermost_loop(is_hash), cfg.largest_loop()
+    assert draw.body < step.body
+    assert [cfg.instrs[cfg.blocks[b][0]].addr for b in sorted(draw.body)] == [0x30, 0x60, 0x80]
+    hashes = cfg.blocks_with(is_hash, draw.body)
+    assert len(hashes) == 1
+    # a pass over a cell that is not set, and over one that is
+    assert cfg.iteration(draw) == {"issue": 6, "int32": 3, "fp32": 0, "sfu": 0, "mem": 1}
+    assert cfg.iteration(draw, via=hashes[0]) == {"issue": 8, "int32": 4, "fp32": 1,
+                                                  "sfu": 0, "mem": 1}
+    # the step: one pass of the draw loop, two shuffles (mem) and the vote
+    assert cfg.iteration(step) == {"issue": 15, "int32": 7, "fp32": 2, "sfu": 0, "mem": 3}
+
+
+# a shuffle guarded by BRA.DIV: the fast path falls through when the warp
+# is converged; the slow path (WARPSYNC.COLLECTIVE, the shuffle again)
+# branches back after it
+DIVERGENT_SHUFFLE = listing(
+    "/*0000*/                   UMOV UR4, 0xffffffff ;",
+    "/*0010*/                   BRA.DIV UR4, 0x50 ;",
+    "/*0020*/                   SHFL.BFLY PT, R5, R4, 0x10, 0x1f ;",
+    "/*0030*/                   FMNMX R4, R4, R5, !PT ;",
+    "/*0040*/                   EXIT ;",
+    "/*0050*/                   WARPSYNC.COLLECTIVE R17, 0x80 ;",
+    "/*0060*/                   SHFL.BFLY P0, R5, R4, 0x10, 0x1f ;",
+    "/*0070*/                   NOP ;",
+    "/*0080*/                   BRA 0x30 ;",
+)
+
+
+def test_bra_div_may_fall_through_to_the_converged_path():
+    cfg = _sass.Cfg(_sass.parse(DIVERGENT_SHUFFLE))
+    assert cfg.instrs[1].conditional()
+    starts = [cfg.instrs[s].addr for s, _ in cfg.blocks]
+    assert starts == [0x00, 0x20, 0x30, 0x50]
+    assert cfg.succ == [[1, 3], [2], [], [2]]
+    got = cfg.min_counts(0, 2, within=range(len(cfg.blocks)))
+    assert got == {"issue": 5, "int32": 0, "fp32": 1, "sfu": 0, "mem": 1}
+
+
 @pytest.mark.parametrize(
     "opcode, cls",
     [
@@ -115,6 +183,8 @@ def test_each_class_takes_its_own_shortest_path():
         ("POPC", "sfu"),
         ("LDG.E.CONSTANT", "mem"),
         ("STG.E.128", "mem"),
+        ("SHFL.BFLY", "mem"),
+        ("VOTE.ANY", "int32"),
         ("UIADD3", "issue"),
         ("BSSY", "issue"),
     ],

@@ -17,7 +17,8 @@ capability 9.0 and the SM's four schedulers of one warp instruction each:
   int32  integer add, multiply, logic, shift, compare, move   64
   fp32   float32 add, multiply, fma, compare, select         128
   sfu    MUFU, popcount, bit scans, the slow conversions      16
-  mem    loads and stores to global, shared and local memory  32
+  mem    loads and stores to global, shared and local memory,
+         and warp shuffles                                    32
 
 Uniform-datapath (``U*``) and control instructions count under ``issue``
 only.  The module runs ``cuobjdump`` only in :func:`kernel_sass`; parsing
@@ -41,7 +42,7 @@ _SFU = {"MUFU", "POPC", "FLO", "BREV", "I2F", "F2I", "F2F", "FRND"}
 _FP32 = {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "FCHK",
          "I2FP", "F2IP", "FSWZADD", "HADD2", "HMUL2", "HFMA2"}
 _MEM = {"LDG", "STG", "LD", "ST", "LDS", "STS", "LDL", "STL", "ATOM", "ATOMG",
-        "ATOMS", "RED", "LDGSTS", "LDSM"}
+        "ATOMS", "RED", "LDGSTS", "LDSM", "SHFL"}
 _ISSUE_ONLY = {"BRA", "BSSY", "BSYNC", "EXIT", "NOP", "BAR", "WARPSYNC",
                "YIELD", "RET", "CALL", "S2R", "S2UR", "CS2R", "LDC", "R2UR",
                "BMOV", "DEPBAR", "MEMBAR", "ERRBAR", "CCTL"}
@@ -91,8 +92,11 @@ class Instr:
 
     def conditional(self) -> bool:
         """A branch or exit that may fall through."""
-        # "BRA P2, 0x..." and "BRA !P2, 0x..." branch on a second predicate
-        return self.guarded or bool(re.match(r"!?U?P[0-6]\s*,", self.operands))
+        # "BRA P2, 0x..." and "BRA !P2, 0x..." branch on a second predicate;
+        # "BRA.DIV UR4, 0x..." only when the warp has diverged (to the slow
+        # path of a warp-synchronous op such as SHFL or VOTE)
+        return (self.guarded or self.opcode == "BRA.DIV"
+                or bool(re.match(r"!?U?P[0-6]\s*,", self.operands)))
 
 
 def parse(text: str) -> list:

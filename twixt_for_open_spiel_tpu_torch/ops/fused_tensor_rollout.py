@@ -4,8 +4,9 @@ its plain version.
 Port of ``scripts/archive_fused_tensor_rollout.py`` (kept in the JAX repo's
 ``scripts/``, outside its package): the Pallas TPU kernel
 ``fused_random_rollout`` becomes the hand-written Hopper kernel
-``csrc/fused_tensor_rollout.cu`` (one thread per env, all ``num_steps`` in
-one launch), and its transition is ``ops/step.py``'s.  Every action is a
+``csrc/fused_tensor_rollout.cu`` (one warp per env with its board in shared
+memory, all ``num_steps`` in one launch), and its transition is
+``ops/step.py``'s.  Every action is a
 Gumbel-max draw keyed by a counter hash of (seed, program, step, cell, env
 in tile), so ``tile`` is part of the function: it names the JAX kernel's
 batch tiles, and the stream changes with it.
@@ -192,6 +193,26 @@ def _kernel():
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+def envs_per_block(board_size: int, batch: int, device="cuda") -> int:
+    """The envs (warps) per block that a launch at this board size and batch
+    takes on ``device``'s card: chosen by the kernel from the shared memory
+    a board needs and the card's SMs (``csrc/fused_tensor_rollout.cu``)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"envs_per_block: the kernel runs on a CUDA device, not {device}")
+    fn = _cuda.load("fused_tensor_rollout").twixt_fused_tensor_rollout_envs_per_block
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        envs = fn(board_size, batch)
+    if envs < 1:
+        raise RuntimeError(
+            "fused_tensor_rollout launch shape: "
+            + _cuda.error_string("fused_tensor_rollout", -envs)
+        )
+    return envs
 
 
 def _launch(seed: int, board_size: int, num_steps: int, state: State, tile: int):

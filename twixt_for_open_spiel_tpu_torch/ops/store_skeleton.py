@@ -4,8 +4,9 @@ Port of ``scripts/repro_mosaic_dma_tile.py::build_skeleton`` (kept in the
 JAX repo's ``scripts/``): a Pallas TPU kernel with no inputs whose ``grid``
 programs each stream ``steps`` slabs of ``rows`` rows through a 2-slot VMEM
 buffer into device memory with double-buffered async copies.  On the card
-it is ``csrc/store_skeleton.cu``: one block per program, a 2-slot staging
-buffer in shared memory, coalesced 16-byte stores.  It computes
+it is ``csrc/store_skeleton.cu``: a persistent grid of about two blocks per
+SM, whatever ``grid`` is, walking the output in 16 KB chunks, each staged in
+a 4-slot shared-memory ring and stored by one TMA bulk copy.  It computes
 
     out[k * rows + j, g * subl + s, l] = k + j
 

@@ -7,13 +7,17 @@ them).  Every timed launch is held against the plain version, so no shape
 here passes unchecked:
 
   * the canonical-engine rollout (``fused_random_rollout``, tile 256), 1000
-    steps from the initial state, at batch 4096 and at batches that give
-    each of the card's 132 SMs one (8448) or four (33792) of its 64-thread
-    blocks; the timed launch's final state, actions and results equal the
-    plain version's;
+    steps from the initial state, at batch 4096 and at 8448 and 33792 (64
+    and 256 envs a SM on the card's 132 SMs), with the envs per block the
+    kernel picks; the timed launch's final state, actions and results equal
+    the plain version's;
   * the store probe (``store_skeleton``) with the obs stream's bytes at
     board 24 (360 rows, 16 steps, 8192 words a row) over 32 to 256
-    programs; each timed output equals the plain version's.
+    programs (a shape only: the kernel's grid does not follow it), timed
+    over launches back to back; each timed output equals the plain
+    version's.  Beside it, PyTorch's ``fill_`` of a buffer of the same size
+    (a constant, so not K4's function): the card's store rate through a
+    plain kernel.
 
 Prints the card's name and power limit, then one line per row, times by
 CUDA events.  Exits non-zero on any mismatch and without a CUDA device.
@@ -32,10 +36,10 @@ from twixt_for_open_spiel_tpu_torch.ops import rollout as troll
 from twixt_for_open_spiel_tpu_torch.ops import store_skeleton as sk
 
 TENSOR_ROWS = [(8, 4096), (8, 8448), (8, 33792), (24, 4096), (24, 8448)]  # board, batch
-TENSOR_STEPS, TENSOR_TILE, TENSOR_THREADS = 1000, 256, 64
+TENSOR_STEPS, TENSOR_TILE = 1000, 256
 STORE_ROWS, STORE_STEPS = 12 * 30, 16
 STORE_GRIDS = [(2, 128, 32), (1, 128, 64), (1, 64, 128), (1, 32, 256)]  # subl, lanes, grid
-STORE_REPS = 20
+STORE_REPS, STORE_RUNS = 20, 5
 
 
 def timed(fn):
@@ -60,7 +64,8 @@ def tensor_rows(dev) -> None:
         pairs = list(zip(got[0], want[0])) + [(got[1], want[1]), (got[2], want[2])]
         if not all(torch.equal(a, c) for a, c in pairs):
             raise RuntimeError(f"fused_random_rollout != plain at n={n} batch={b}")
-        print(f"[K3 sweep] n={n} batch={b} blocks={-(-b // TENSOR_THREADS)} "
+        envs = ftr.envs_per_block(n, b, dev)
+        print(f"[K3 sweep] n={n} batch={b} envs/block={envs} blocks={-(-b // envs)} "
               f"steps={TENSOR_STEPS}: {ms} ms -> {b * TENSOR_STEPS / ms * 1e3} env-steps/s; "
               f"equal to the plain version")
 
@@ -71,16 +76,24 @@ def store_rows(dev) -> None:
         want = sk.store_skeleton_reference(*shape, device=dev)
         sk.store_skeleton(*shape, device=dev)  # warm-up
         times = []
-        for _ in range(STORE_REPS):
-            ms, got = timed(lambda: sk.store_skeleton(*shape, device=dev))
-            if not torch.equal(got, want):
+        for _ in range(STORE_RUNS):
+            outs = []
+            ms, _ = timed(lambda: [outs.append(sk.store_skeleton(*shape, device=dev))
+                                   for _ in range(STORE_REPS)])
+            if not all(torch.equal(got, want) for got in outs):
                 raise RuntimeError(f"store_skeleton != plain at {shape}")
-            times.append(ms)
+            times.append(ms / STORE_REPS)
         med = statistics.median(times)
         nbytes = want.numel() * want.element_size()
         print(f"[K4 sweep] subl={subl} lanes={lanes} grid={grid}: median {med} ms of "
-              f"{STORE_REPS} -> {nbytes / med / 1e6} GB/s; every output equal to the "
-              f"plain version")
+              f"{STORE_RUNS} runs of {STORE_REPS} launches -> {nbytes / med / 1e6} GB/s; "
+              f"every output equal to the plain version")
+    buf = torch.empty_like(want)
+    times = [timed(lambda: [buf.fill_(7) for _ in range(STORE_REPS)])[0] / STORE_REPS
+             for _ in range(STORE_RUNS)]
+    med = statistics.median(times)
+    print(f"[K4 sweep] fill_ of the same {nbytes} bytes: median {med} ms of {STORE_RUNS} "
+          f"runs of {STORE_REPS} -> {nbytes / med / 1e6} GB/s")
 
 
 def main() -> int:
