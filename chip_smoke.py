@@ -12,16 +12,20 @@ non-zero exit.
      with nvcc for sm_90a, one nvcc per source, all at once, and print the
      build time and nvcc's register report; read each rollout kernel's
      SASS (``cuobjdump -sass``) and count the fewest instructions, per
-     class, that a step, a cell of K3's draw and a row of K2's obs stream
-     issue (``ops/_sass.py``), for the bounds;
+     class, that a step, a cell of K3's draw and a lane's row of K2's
+     staged wire issue (``ops/_sass.py``), for the bounds;
 
-  the bitboard rollout (K1, K2: ``fused_bit_rollout``):
+  the bitboard rollout (K1, K2: ``fused_bit_rollout``, one warp per env):
   3. the kernel is bit-equal to its plain torch version, on the card, in
-     every state leaf, ``episodes``, ``results`` and the ``obs`` stream;
+     every state leaf, ``episodes``, ``results`` and the ``obs`` stream:
+     both arms at full width, K2's wire by TMA (B % 4 == 0) and by plain
+     stores (B % 4 != 0), a last block of envs that is ragged, a single env
+     in both arms;
   4. the JAX anchor: the kernel's final-state digests equal those of the JAX
      engine in ``tests/fixtures/torch_port_rollout_digests.json``;
-  5. throughput at the benchmark's rollout rows and the obs row, by CUDA
-     events, and of the plain version at the headline size;
+  5. throughput at the benchmark's rollout rows (K1) and the obs row (K2,
+     the median of 5 runs of its 32 launches), by CUDA events, and of the
+     plain version at both;
 
   the canonical-engine rollout (K3: ``fused_random_rollout``):
   6. the kernel is bit-equal to its plain version in every state leaf,
@@ -46,7 +50,8 @@ non-zero exit.
       over runs of launches back to back (a launch takes about 0.1 ms, near
       the wrapper's host time).
 
-The second-to-last line is a JSON object describing the kernels, each with
+The second-to-last line is a JSON object describing the kernels (K1 and K2
+as entries of their own), each with
 its time, its plain version's time and its bound (the least time the card
 could take: bytes over 3.35 TB/s or the SASS-counted instructions over
 the issue rates, the larger); the last is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -91,9 +96,14 @@ EQUALITY_CASES = [
     (5, 256, 60, 3, False),
     (8, 4096, 256, 0, False),
     (12, 4096, 128, 7, False),
-    (24, 4096, 64, 0, False),
-    (8, 1000, 100, 13, False),  # ragged: no multiple of the block
-    (24, 8192, 16, 5, True),
+    (24, 4096, 64, 0, False),  # full width
+    (8, 1000, 100, 13, False),
+    (5, 1, 200, 11, False),  # a single env: one warp
+    (24, 8192, 16, 5, True),  # full width, the wire by TMA
+    (8, 1003, 100, 13, True),  # B % 4 != 0: the wire by plain stores, a ragged last block
+    (12, 4100, 48, 21, True),  # by TMA, a last block of 4 envs
+    (5, 264, 60, 6, True),  # P = 11
+    (5, 1, 200, 11, True),
 ]
 # the rollout rows of bench.py: (board_size, batch) at 1000 steps
 RATE_ROWS = [(5, 256), (8, 4096), (12, 4096), (24, 4096)]
@@ -118,6 +128,9 @@ TENSOR_TILE = 256
 # K3's headline bound when its kernel ran one thread per env (PERF.md), to
 # show that the bound still counts the same work
 THREAD_PER_ENV_K3_BOUND_MS = 0.5319
+# the same for K1 at the headline and the K2 row (one thread per env, PERF.md)
+THREAD_PER_ENV_K1_BOUND_MS = 0.0806
+THREAD_PER_ENV_K2_BOUND_MS = 2.2884
 ROLLOUT_ROW = (12, 4096, 8)  # random_rollout: board, batch, steps
 
 # --- the store-stream probe (K4): the obs stream's shape at board 24 --------
@@ -140,6 +153,12 @@ def max_abs_diff(pairs) -> int:
         require(a.shape == b.shape and a.dtype == b.dtype, "output shapes/dtypes")
         err = max(err, int((a.long() - b.long()).abs().max()) if a.numel() else 0)
     return err
+
+
+def zero_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    fbr.fused_bit_rollout.launches = fbr.fused_bit_rollout.obs_launches = 0
+    ftr.fused_random_rollout.launches = sk.store_skeleton.launches = 0
 
 
 def bit_pairs(a_out, b_out) -> list:
@@ -199,27 +218,54 @@ def combine(*terms) -> dict:
     return {c: sum(k * counts[c] for k, counts in terms) for c in _sass.CLASSES}
 
 
+def is_hash(instr) -> bool:  # hash_u32's first multiplier
+    return 0x7FEB352D in instr.immediates()
+
+
+def bit_rollout_counts(cfg) -> dict:
+    """K1/K2's per-class counts, from the SASS of the warp-per-env kernel,
+    of the fewest instructions a lane can issue for (see ops/_sass.py):
+
+      K1 step       one pass of the step loop through the draw: the block
+                    with the noise hash and the 5 rounds of its scan
+                    (SHFL.UP), every inner loop passed at most once;
+      K2 step       the same pass through the staging block first;
+      K2 stage row  the staging block: one lane's row of the 12 planes,
+                    written to the shared tile (12 STS).
+
+    The step loop is the smallest loop that holds the scan: the slow paths
+    of the warp-synchronous ops (``BRA.DIV``), placed after the kernel's
+    exit, jump back into the step and close larger loops around it."""
+    def is_scan(instr) -> bool:
+        return instr.opcode.startswith("SHFL.UP")
+
+    def count(match, blocks) -> int:
+        return sum(map(match, (i for b in blocks for i in cfg.instructions(b))))
+
+    step = cfg.innermost_loop(is_scan, at_least=5)
+    draws = [b for b in cfg.blocks_with(is_hash, step.body) if count(is_scan, [b]) >= 5]
+    require(len(draws) >= 1, "K1's draw hashes the noise beside the 5 rounds of its scan")
+    stages = [b for b in sorted(step.body) if count(lambda i: i.base == "STS", [b]) >= 12]
+    require(len(stages) == 1, "K2 stages a lane's row of 12 planes in one block")
+    require(count(lambda i: i.base == "UTMASTG", step.body) >= 2,
+            "K2 stores a step's tile as two TMA boxes")
+    return {
+        "K1 step": cfg.iteration(step, via=draws[0]),
+        "K2 step": cfg.iteration(step, via=(stages[0], draws[0])),
+        "K2 stage row": dict(cfg.counts[stages[0]]),
+    }
+
+
 def sass_counts() -> dict:
     """Per-class instruction counts, from the SASS of the built rollout
-    kernels, of the fewest a thread can issue for (see ops/_sass.py):
+    kernels, of the fewest a lane can issue for (see ops/_sass.py): K1's
+    and K2's as :func:`bit_rollout_counts` finds them, and
 
-      K1 step        one step, every inner loop passed at most once;
-      K2 step        the same through the obs loop, and K2 obs row one
-                     more pass of it (one padded row, 12 stores);
       K3 step        one step, every inner loop passed at most once;
       K3 cell        one cell of the draw's P*P scan, not legal;
       K3 legal cell  one legal cell (the hash, the two logf, the compare).
     """
-    def is_store(instr) -> bool:
-        return instr.base == "STG"
-
-    def is_hash(instr) -> bool:  # hash_u32's first multiplier
-        return 0x7FEB352D in instr.immediates()
-
-    bit = _sass.Cfg(_sass.parse(_sass.kernel_sass("fused_bit_rollout")))
-    obs = bit.innermost_loop(is_store, at_least=12)
-    require(sum(map(is_store, (i for b in obs.body for i in bit.instructions(b)))) == 12,
-            "K2's obs loop stores one row of 12 planes a pass")
+    bit = bit_rollout_counts(_sass.Cfg(_sass.parse(_sass.kernel_sass("fused_bit_rollout"))))
     ten = _sass.Cfg(_sass.parse(_sass.kernel_sass("fused_tensor_rollout")))
     draw = ten.innermost_loop(is_hash)
     hashes = ten.blocks_with(is_hash, draw.body)
@@ -231,9 +277,7 @@ def sass_counts() -> dict:
                     for i in ten.instructions(b))
     require(butterfly >= 10, "K3's step reduces the draw over the warp (5 rounds of 2 shuffles)")
     counts = {
-        "K1 step": bit.iteration(bit.largest_loop()),
-        "K2 step": bit.iteration(bit.largest_loop(), via=obs.header),
-        "K2 obs row": bit.iteration(obs),
+        **bit,
         "K3 step": ten.iteration(step),
         "K3 cell": ten.iteration(draw),
         "K3 legal cell": ten.iteration(draw, via=hashes[0]),
@@ -253,13 +297,14 @@ def bit_state_bytes(n: int, batch: int) -> int:
 def bit_rollout_bound(sass: dict, n: int, batch: int, steps: int, obs: bool = False):
     """K1/K2: the state read and written once, the counters (and the obs
     stream) written once; per env-step the SASS count of one step, with obs
-    plus P-1 more passes of the obs loop (one a padded row)."""
+    plus P-1 more lanes' staging blocks (one a padded row: each lane's
+    distinct work counted once)."""
     p = n + 2 * geo.PAD
     nbytes = 2 * bit_state_bytes(n, batch) + 5 * 4 * batch
     per_step = sass["K1 step"]
     if obs:
         nbytes += steps * batch * 12 * p * 4
-        per_step = combine((1, sass["K2 step"]), (p - 1, sass["K2 obs row"]))
+        per_step = combine((1, sass["K2 step"]), (p - 1, sass["K2 stage row"]))
     return bound(nbytes, combine((steps * batch, per_step)))
 
 
@@ -298,23 +343,34 @@ def build_all() -> None:
 
 def bitboard_path(dev, sass: dict) -> dict:
     """Phases 3-5: K1/K2 against the plain version, the JAX anchor, rates."""
-    max_err = 0
+    max_err = {False: 0, True: 0}
+    shapes = set()  # (emit_obs, by TMA, last block ragged, single env)
     for n, b, steps, seed, emit in EQUALITY_CASES:
         bs = tbit.bit_reset(n, b, dev)
         got = fbr.fused_bit_rollout(seed, n, steps, bs, emit_obs=emit)
         torch.cuda.synchronize()
         want = fbr.fused_bit_rollout_reference(seed, n, steps, bs, emit_obs=emit)
         err = max_abs_diff(bit_pairs(got, want))
-        max_err = max(max_err, err)
+        max_err[emit] = max(max_err[emit], err)
         episodes = int(got[1]["episodes"])
-        print(f"[K1 equal] n={n} batch={b} steps={steps} seed={seed} "
-              f"emit_obs={emit}: max_abs_err={err} episodes={episodes}")
-        require(err == 0, f"K1 kernel != plain at n={n} batch={b}")
+        envs = fbr.envs_per_block(n, b, emit, dev)
+        tma = emit and b % 4 == 0
+        shapes.add((emit, tma, b % envs != 0, b == 1))
+        wire = (", wire by " + ("TMA" if tma else "plain stores")) if emit else ""
+        print(f"[K1 equal] n={n} batch={b} steps={steps} seed={seed} emit_obs={emit} "
+              f"envs/block={envs} (last block {b % envs or envs} envs){wire}: "
+              f"max_abs_err={err} episodes={episodes}")
+        require(err == 0, f"K1/K2 kernel != plain at n={n} batch={b} emit_obs={emit}")
         require(int(got[1]["results"].sum()) == episodes, "results sum to episodes")
+    for what, match in [
+        ("K2's wire by TMA, a ragged last block", lambda emit, tma, ragged, one: tma and ragged),
+        ("K2's wire by plain stores", lambda emit, tma, ragged, one: emit and not tma),
+        ("a single env without the wire", lambda emit, tma, ragged, one: one and not emit),
+        ("a single env with the wire", lambda emit, tma, ragged, one: one and emit),
+    ]:
+        require(any(match(*s) for s in shapes), f"an equality case: {what}")
 
-    # the main path from here on: count only its launches
-    fbr.fused_bit_rollout.launches = ftr.fused_random_rollout.launches = 0
-    sk.store_skeleton.launches = 0
+    zero_counts()  # the main path from here on: count only its launches
 
     for case in json.loads(FIXTURE.read_text())["cases"]:
         n, b = case["board_size"], case["batch"]
@@ -340,7 +396,8 @@ def bitboard_path(dev, sass: dict) -> dict:
         med = statistics.median(ms)
         rates[(n, b)] = med
         bound_ms, by = bit_rollout_bound(sass, n, b, RATE_STEPS)
-        print(f"[K1 rate] n={n} batch={b} steps={RATE_STEPS} blocks={-(-b // 256)}: "
+        print(f"[K1 rate] n={n} batch={b} steps={RATE_STEPS} "
+              f"envs/block={fbr.envs_per_block(n, b, False, dev)}: "
               f"median {med} ms of {ms} -> {b * RATE_STEPS / med * 1e3} env-steps/s; "
               f"bound {bound_ms} ms ({by})")
     n, b, chunk, launches = OBS_ROW
@@ -351,18 +408,22 @@ def bitboard_path(dev, sass: dict) -> dict:
             state[0], _, obs = fbr.fused_bit_rollout(0, n, chunk, state[0], emit_obs=True)
             require(obs.shape == (chunk, 12, n + 6, b), "obs shape")
 
-    before = fbr.fused_bit_rollout.launches
     fbr.fused_bit_rollout(0, n, chunk, state[0], emit_obs=True)  # warm-up
-    (obs_ms,) = timed_ms(run_obs, 1)
+    obs_runs = timed_ms(run_obs, RATE_REPS)
+    obs_ms = statistics.median(obs_runs)
     obs_bytes = launches * chunk * b * 12 * (n + 6) * 4
-    one_ms, by = bit_rollout_bound(sass, n, b, chunk, obs=True)
-    print(f"[K2 rate] emit_obs n={n} batch={b} {launches}x{chunk} steps: {obs_ms} ms -> "
+    one_ms, obs_by = bit_rollout_bound(sass, n, b, chunk, obs=True)
+    print(f"[K2 rate] emit_obs n={n} batch={b} envs/block={fbr.envs_per_block(n, b, True, dev)} "
+          f"{launches}x{chunk} steps: median {obs_ms} ms of {obs_runs} -> "
           f"{b * chunk * launches / obs_ms * 1e3} env-steps/s, obs stream "
-          f"{obs_bytes / obs_ms / 1e6} GB/s; bound {one_ms * launches} ms ({by}); "
-          f"{fbr.fused_bit_rollout.launches - before} emit_obs launches")
+          f"{obs_bytes / obs_ms / 1e6} GB/s; bound {one_ms * launches} ms ({obs_by}); "
+          f"one thread per env: {THREAD_PER_ENV_K2_BOUND_MS} ms, ratio "
+          f"{one_ms * launches / THREAD_PER_ENV_K2_BOUND_MS}")
 
     launches_main = fbr.fused_bit_rollout.launches
-    require(launches_main > 0, "the bitboard path launched its kernel")
+    obs_launches = fbr.fused_bit_rollout.obs_launches
+    require(launches_main - obs_launches > 0 and obs_launches > 0,
+            "the bitboard path launched both arms of its kernel")
     require(ftr.fused_random_rollout.launches == sk.store_skeleton.launches == 0,
             "the bitboard path launched only its own kernel")
 
@@ -385,20 +446,23 @@ def bitboard_path(dev, sass: dict) -> dict:
     require(fbr.fused_bit_rollout.launches == launches_main, "the plain runs launched nothing")
     n, b = HEADLINE
     bound_ms, by = bit_rollout_bound(sass, n, b, RATE_STEPS)
+    print(f"[K1 bound] n={n} batch={b} steps={RATE_STEPS}: {bound_ms} ms ({by}); "
+          f"one thread per env: {THREAD_PER_ENV_K1_BOUND_MS} ms, ratio "
+          f"{bound_ms / THREAD_PER_ENV_K1_BOUND_MS}")
+    entry = {"route": "cuda", "source": CSRC + "fused_bit_rollout.cu", "library_ms": None}
     return {
-        "report": {
-            "name": "fused_bit_rollout",
-            "route": "cuda",
-            "source": CSRC + "fused_bit_rollout.cu",
-            "replaces": "twixt_for_open_spiel_tpu/ops/fused_bit_rollout.py:436",
-            "launches": launches_main,
-            "max_abs_err": max_err,
-            "ms": rates[HEADLINE],
-            "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": by,
-            "library_ms": None,
-        },
+        "reports": [
+            {"name": "fused_bit_rollout", **entry,
+             "replaces": "twixt_for_open_spiel_tpu/ops/fused_bit_rollout.py:436",
+             "launches": launches_main - obs_launches, "max_abs_err": max_err[False],
+             "ms": rates[HEADLINE], "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": by},
+            {"name": "fused_bit_rollout(emit_obs=True)", **entry,
+             "replaces": "twixt_for_open_spiel_tpu/ops/fused_bit_rollout.py:436",
+             "launches": obs_launches, "max_abs_err": max_err[True],
+             "ms": obs_ms / launches, "plain_ms": obs_plain_ms / launches,
+             "bound_ms": one_ms, "bound_by": obs_by},
+        ],
         "obs_bytes_per_s": obs_bytes / obs_ms * 1e3,
         "rates": rates,
     }
@@ -430,9 +494,7 @@ def tensor_path(dev, sass: dict, k1_rates: dict) -> dict:
     else:
         raise RuntimeError("check failed: a batch that is no multiple of the tile ran")
 
-    # the main path from here on: count only its launches
-    fbr.fused_bit_rollout.launches = ftr.fused_random_rollout.launches = 0
-    sk.store_skeleton.launches = 0
+    zero_counts()  # the main path from here on: count only its launches
 
     for case in json.loads(TENSOR_FIXTURE.read_text())["cases"]:
         n, b, steps = case["board_size"], case["batch"], case["num_steps"]
@@ -532,9 +594,7 @@ def store_path(dev, obs_bytes_per_s: float) -> dict:
     print(f"[K4 equal] rows, steps, subl, lanes, grid = {STORE_SHAPE}: max_abs_err={max_err}")
     require(max_err == 0, "K4 kernel != plain")
 
-    # the main path from here on: count only its launches
-    fbr.fused_bit_rollout.launches = ftr.fused_random_rollout.launches = 0
-    sk.store_skeleton.launches = 0
+    zero_counts()  # the main path from here on: count only its launches
     last = [sk.store_skeleton(*STORE_SHAPE, device=dev)]  # warm-up
 
     def run():
@@ -601,7 +661,7 @@ def main() -> int:
     tensor = tensor_path(dev, sass, bit["rates"])
     store = store_path(dev, bit["obs_bytes_per_s"])
 
-    print(json.dumps({"kernels": [bit["report"], tensor, store]}))
+    print(json.dumps({"kernels": [*bit["reports"], tensor, store]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -171,6 +171,92 @@ def test_bra_div_may_fall_through_to_the_converged_path():
     assert got == {"issue": 5, "int32": 0, "fp32": 1, "sfu": 0, "mem": 1}
 
 
+# K1/K2's step loop, as the warp-per-env kernel's SASS lays it out: a
+# prologue; the step's header tests for the wire; the staging block writes
+# a lane's row of 12 planes to shared memory, then a barrier and (thread 0)
+# two TMA tensor stores; a dead warp skips the step; the draw hashes the
+# noise beside the 5 rounds of its scan, behind a BRA.DIV whose slow path,
+# after the kernel's exit, repeats the draw and jumps back into the step
+BIT_STEP = listing(
+    "/*0000*/                   S2R R0, SR_LANEID ;",
+    "/*0010*/                   ISETP.NE.AND P5, PT, R0, RZ, PT ;",
+    "/*0020*/               @P5 BRA 0x40 ;",
+    "/*0030*/                   MOV R9, RZ ;",
+    "/*0040*/                   MOV R10, RZ ;",
+    "/*0050*/                   ISETP.NE.AND P0, PT, R8, RZ, PT ;",
+    "/*0060*/              @!P0 BRA 0x190 ;",
+    "/*0070*/                   LOP3.LUT R2, R3, R4, RZ, 0xc0, !PT ;",
+    *(f"/*{0x80 + 0x10 * j:04x}*/                   STS [R1+{hex(0x40 * j)}], R2 ;"
+      for j in range(12)),
+    "/*0140*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;",
+    "/*0150*/               @P1 BRA 0x190 ;",
+    "/*0160*/                   UTMASTG.2D [UR4], [UR8] ;",
+    "/*0170*/                   UTMASTG.2D [UR4], [UR12] ;",
+    "/*0180*/                   UTMACMDFLUSH ;",
+    "/*0190*/                   ISETP.GE.AND P2, PT, R10, R11, PT ;",
+    "/*01a0*/               @P2 BRA 0x280 ;",
+    "/*01b0*/                   UMOV UR6, 0xffffffff ;",
+    "/*01c0*/                   BRA.DIV UR6, 0x2d0 ;",
+    "/*01d0*/                   IMAD R3, R9, 0x7feb352d, RZ ;",
+    *(f"/*{0x1e0 + 0x10 * j:04x}*/                   SHFL.UP PT, R4, R5, {hex(1 << j)}, RZ ;"
+      for j in range(5)),
+    "/*0230*/                   VOTE.ANY R6, PT, P3 ;",
+    "/*0240*/                   IADD3 R7, R4, R6, RZ ;",
+    "/*0250*/                   STS [R1], R7 ;",
+    "/*0260*/                   LDS R8, [R1] ;",
+    "/*0270*/                   NOP ;",
+    "/*0280*/                   IADD3 R9, R9, 0x1, RZ ;",
+    "/*0290*/                   ISETP.LT.AND P4, PT, R9, 0x3e8, PT ;",
+    "/*02a0*/               @P4 BRA 0x50 ;",
+    "/*02b0*/                   EXIT ;",
+    "/*02c0*/                   BRA 0x2c0;",
+    "/*02d0*/                   WARPSYNC.COLLECTIVE R17, 0x340 ;",
+    "/*02e0*/                   IMAD R3, R9, 0x7feb352d, RZ ;",
+    *(f"/*{0x2f0 + 0x10 * j:04x}*/                   SHFL.UP PT, R4, R5, {hex(1 << j)}, RZ ;"
+      for j in range(5)),
+    "/*0340*/                   VOTE.ANY R6, PT, P3 ;",
+    "/*0350*/                   BRA 0x240 ;",
+)
+
+
+def test_bit_rollout_step_and_stage_signatures():
+    import chip_smoke
+
+    cfg = _sass.Cfg(_sass.parse(BIT_STEP))
+    starts = [cfg.instrs[s].addr for s, _ in cfg.blocks]
+    assert starts == [0x0, 0x30, 0x40, 0x50, 0x70, 0x160, 0x190, 0x1B0, 0x1D0, 0x240, 0x280,
+                      0x2B0, 0x2C0, 0x2D0]
+    # the slow path's jump back closes a loop larger than the step loop
+    assert cfg.largest_loop().latch == 13 and len(cfg.largest_loop().body) == 11
+    got = chip_smoke.bit_rollout_counts(cfg)
+    # K1: header, the dead-warp test, the BRA.DIV, the draw, the rest, latch
+    assert got["K1 step"] == {"issue": 20, "int32": 7, "fp32": 0, "sfu": 0, "mem": 7}
+    # K2: the same through the staging block (12 STS, the barrier), past the TMA arm
+    assert got["K2 step"] == {"issue": 35, "int32": 8, "fp32": 0, "sfu": 0, "mem": 19}
+    assert got["K2 stage row"] == {"issue": 15, "int32": 1, "fp32": 0, "sfu": 0, "mem": 12}
+
+
+def test_bit_rollout_signatures_refuse_a_wire_without_tensor_stores():
+    import chip_smoke
+
+    plain = BIT_STEP.replace("UTMASTG.2D [UR4], [UR8]", "STG.E [R2.64], R3")
+    with pytest.raises(RuntimeError, match="two TMA boxes"):
+        chip_smoke.bit_rollout_counts(_sass.Cfg(_sass.parse(plain)))
+    unscanned = BIT_STEP.replace("SHFL.UP PT, R4, R5, 0x10, RZ", "SHFL.IDX PT, R4, R5, 0x10, 0x1f")
+    with pytest.raises(RuntimeError, match="5 rounds of its scan"):
+        chip_smoke.bit_rollout_counts(_sass.Cfg(_sass.parse(unscanned)))
+
+
+def test_a_path_through_a_sequence_of_blocks():
+    cfg = _sass.Cfg(_sass.parse(BIT_STEP))
+    step = cfg.innermost_loop(lambda i: i.opcode.startswith("SHFL.UP"), at_least=5)
+    assert (step.header, step.latch) == (3, 10)
+    # through the staging block alone, the shortest pass skips the step (a dead warp)
+    assert cfg.iteration(step, via=4)["mem"] == 12
+    assert cfg.iteration(step, via=(4, 8))["mem"] == 19
+    assert cfg.iteration(step, via=[4, 8]) == cfg.iteration(step, via=(4, 8))
+
+
 @pytest.mark.parametrize(
     "opcode, cls",
     [
@@ -186,6 +272,8 @@ def test_bra_div_may_fall_through_to_the_converged_path():
         ("SHFL.BFLY", "mem"),
         ("VOTE.ANY", "int32"),
         ("UIADD3", "issue"),
+        ("UTMASTG.2D", "issue"),
+        ("SHFL.UP", "mem"),
         ("BSSY", "issue"),
     ],
 )

@@ -20,6 +20,11 @@
 // Bulk-copy groups belong to the thread that commits them, so thread 0
 // issues, commits and waits for every copy.  ``bytes`` and both addresses
 // must be multiples of 16; ``shared_base`` 128-byte aligned.
+//
+// A tile whose rows are not contiguous in device memory goes out instead by
+// copy_tensor_2d (a TMA tensor copy through a CUtensorMap), in the same bulk
+// groups: fence_shared_to_async, a barrier, then one thread copies, commits
+// and later waits (wait_read before the slot is refilled, wait_all at exit).
 
 #pragma once
 
@@ -39,6 +44,17 @@ __device__ __forceinline__ void copy(void* dst, const void* src, uint32_t bytes)
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(src));
   asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
                :: "l"(dst), "r"(s), "r"(bytes) : "memory");
+}
+
+// One TMA tensor copy of a 2-D box from shared memory to device memory, at
+// element coordinates (x innermost, y) of the tensor map ``map`` (the address
+// of a __grid_constant__ CUtensorMap kernel parameter), added to the calling
+// thread's current bulk group.  The part of the box outside the tensor is
+// not stored.  ``src`` must be 128-byte aligned.
+__device__ __forceinline__ void copy_tensor_2d(const void* map, const void* src, int x, int y) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(src));
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+               :: "l"(reinterpret_cast<uint64_t>(map)), "r"(s), "r"(x), "r"(y) : "memory");
 }
 
 __device__ __forceinline__ void commit() {

@@ -9,6 +9,10 @@ rebuilt when its source, or any ``csrc/*.cuh``, is newer than it.
 There is no fallback: a missing ``nvcc`` or a failed build raises, with
 nvcc's output.  nvcc's ``-Xptxas -v`` report (registers, shared memory,
 spills) is kept beside the library as ``lib<name>.log``.
+
+:func:`geo_table` is the geometry table both rollout kernels take, built
+once per device; :func:`envs_per_block` asks a rollout kernel's library for
+the launch shape it takes.
 """
 
 from __future__ import annotations
@@ -19,6 +23,10 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
+
+from twixt_for_open_spiel_tpu_torch.ops import geometry as geo
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -85,3 +93,28 @@ def error_string(name: str, code: int) -> str:
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_char_p
     return fn(code).decode()
+
+
+@functools.cache
+def geo_table(device: torch.device) -> torch.Tensor:
+    """The rollout kernels' geometry table on ``device``, built once: int32
+    ``OFFSETS`` [8, 2] then ``CROSSERS`` [8, 9, 3], flat."""
+    flat = list(geo.OFFSETS.reshape(-1)) + list(geo.CROSSERS.reshape(-1))
+    return torch.as_tensor(flat, dtype=torch.int32).to(device)
+
+
+def envs_per_block(name: str, device, *args: int) -> int:
+    """The envs (warps) per block a launch of ``csrc/<name>.cu``'s rollout
+    takes on ``device``'s card: its ``twixt_<name>_envs_per_block(*args)``,
+    which returns the count or minus a CUDA error code (raised here)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"envs_per_block: the kernel runs on a CUDA device, not {device}")
+    fn = getattr(load(name), f"twixt_{name}_envs_per_block")
+    fn.argtypes = [ctypes.c_int] * len(args)
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        envs = fn(*args)
+    if envs < 1:
+        raise RuntimeError(f"{name} launch shape: " + error_string(name, -envs))
+    return envs

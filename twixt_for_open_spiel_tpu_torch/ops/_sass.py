@@ -224,21 +224,22 @@ class Cfg:
                     heapq.heappush(heap, (nd, t))
         raise ValueError(f"block {dst} is not reachable from block {src}")
 
-    def min_counts(self, src: int, dst: int, within, via=None) -> dict:
+    def min_counts(self, src: int, dst: int, within, via=()) -> dict:
         """Per class, the fewest instructions on a path from block ``src``
         to block ``dst`` (both counted) inside the blocks ``within``,
-        through block ``via`` if given."""
-        if via is None:
-            return {c: self._shortest(c, src, dst, within) for c in CLASSES}
+        through block ``via`` if given, or through each block of the
+        sequence ``via`` in its order."""
+        stops = [src, *([via] if isinstance(via, int) else via), dst]
         return {
-            c: self._shortest(c, src, via, within) + self._shortest(c, via, dst, within)
-            - self.counts[via][c]
+            c: sum(self._shortest(c, a, b, within) for a, b in zip(stops, stops[1:]))
+            - sum(self.counts[v][c] for v in stops[1:-1])
             for c in CLASSES
         }
 
-    def iteration(self, loop: Loop, via=None) -> dict:
+    def iteration(self, loop: Loop, via=()) -> dict:
         """Per class, the fewest instructions of one pass through ``loop``
-        (from its header to its closing branch), through ``via`` if given."""
+        (from its header to its closing branch), through ``via`` (a block
+        or a sequence of blocks) if given."""
         return self.min_counts(loop.header, loop.latch, loop.body, via)
 
 

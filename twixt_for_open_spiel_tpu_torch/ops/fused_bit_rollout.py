@@ -2,10 +2,12 @@
 
 Port of ``twixt_for_open_spiel_tpu/ops/fused_bit_rollout.py``: the Pallas
 TPU kernel becomes the hand-written Hopper kernel
-``csrc/fused_bit_rollout.cu`` (one thread per env, all ``num_steps`` in one
-launch, state updated in place in device memory).  Both arms of the TPU
-kernel are one kernel here: ``emit_obs=True`` adds plain stores of the
-per-step packed wire into ``obs[T, 12, P, B]``.
+``csrc/fused_bit_rollout.cu`` (one warp per env with its state in shared
+memory, all ``num_steps`` in one launch).  Both arms of the TPU kernel are
+one kernel here: ``emit_obs=True`` adds the per-step packed wire
+``obs[T, 12, P, B]``, staged in shared memory and stored by TMA tensor
+copies (by plain stores when ``B % 4 != 0``: a tensor map's rows must be
+whole 16-byte vectors).
 
 Dispatch by the tensors' device, with no fallback:
 
@@ -76,6 +78,7 @@ def fused_bit_rollout(seed: int, board_size: int, num_steps: int, bs: BitState,
 
 
 fused_bit_rollout.launches = 0  # kernel launches, counted by _launch
+fused_bit_rollout.obs_launches = 0  # of which with emit_obs (K2)
 
 
 def _check_state(bs: BitState, board_size: int) -> None:
@@ -114,6 +117,28 @@ def _kernel():
     return fn
 
 
+@functools.cache
+def _initial_state(board_size: int, device: torch.device) -> tuple:
+    """The batch-1 initial state of the auto-reset on ``device``, from the
+    plain reset, built once: planes int32 [16, P], compid int16 [n, n],
+    scalars int32 [5]."""
+    init = bitstate_leaves(bit_reset(board_size, 1, device))
+    return (
+        torch.stack(init[:_NUM_PLANES])[..., 0].contiguous(),
+        init[_NUM_PLANES][..., 0].contiguous(),
+        torch.stack(init[_NUM_PLANES + 1 :])[:, 0].contiguous(),
+    )
+
+
+def envs_per_block(board_size: int, batch: int, emit_obs: bool = False,
+                   device="cuda") -> int:
+    """The envs (warps) per block that a launch at this board size, batch
+    and arm takes on ``device``'s card: chosen by the kernel from the shared
+    memory an env (and the obs ring) needs and the card's SMs
+    (``csrc/fused_bit_rollout.cu``)."""
+    return _cuda.envs_per_block("fused_bit_rollout", device, board_size, batch, int(emit_obs))
+
+
 def _launch(seed: int, board_size: int, num_steps: int, bs: BitState,
             emit_obs: bool):
     if bs.red.device.type != "cuda":
@@ -128,15 +153,8 @@ def _launch(seed: int, board_size: int, num_steps: int, bs: BitState,
     planes = torch.stack(leaves[:_NUM_PLANES])  # [16, P, B]
     compid = leaves[_NUM_PLANES].clone(memory_format=torch.contiguous_format)
     scalars = torch.stack(leaves[_NUM_PLANES + 1 :])  # [5, B]
-    # the batch-1 initial state of the auto-reset, from the plain reset
-    init = bitstate_leaves(bit_reset(board_size, 1, device))
-    init_planes = torch.stack(init[:_NUM_PLANES])[..., 0].contiguous()
-    init_compid = init[_NUM_PLANES][..., 0].contiguous()
-    init_scalars = torch.stack(init[_NUM_PLANES + 1 :])[:, 0].contiguous()
-    geo_table = torch.as_tensor(
-        list(geo.OFFSETS.reshape(-1)) + list(geo.CROSSERS.reshape(-1)),
-        dtype=_I32,
-    ).to(device)
+    init_planes, init_compid, init_scalars = _initial_state(board_size, device)
+    geo_table = _cuda.geo_table(device)
     episodes = torch.empty(batch, dtype=_I32, device=device)
     results = torch.empty((4, batch), dtype=_I32, device=device)
     obs = None
@@ -159,6 +177,7 @@ def _launch(seed: int, board_size: int, num_steps: int, bs: BitState,
                 + _cuda.error_string("fused_bit_rollout", rc)
             )
         fused_bit_rollout.launches += 1
+        fused_bit_rollout.obs_launches += emit_obs
 
     final = bitstate_from_leaves(
         [*planes.unbind(0), compid, *scalars.unbind(0)]

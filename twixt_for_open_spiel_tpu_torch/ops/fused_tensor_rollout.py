@@ -185,6 +185,14 @@ def _from_int32(cells: torch.Tensor, scalars: torch.Tensor) -> State:
 
 
 @functools.cache
+def _initial_state(board_size: int, device: torch.device) -> tuple:
+    """One env's initial state in the kernel's int32 layout on ``device``,
+    built once: cells [7, P, P], scalars [5]."""
+    init = reset(board_size, device)
+    return _cells(init).contiguous(), _scalars(init).contiguous()
+
+
+@functools.cache
 def _kernel():
     fn = _cuda.load("fused_tensor_rollout").twixt_fused_tensor_rollout
     fn.argtypes = [ctypes.c_void_p] * 7 + [
@@ -199,20 +207,7 @@ def envs_per_block(board_size: int, batch: int, device="cuda") -> int:
     """The envs (warps) per block that a launch at this board size and batch
     takes on ``device``'s card: chosen by the kernel from the shared memory
     a board needs and the card's SMs (``csrc/fused_tensor_rollout.cu``)."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"envs_per_block: the kernel runs on a CUDA device, not {device}")
-    fn = _cuda.load("fused_tensor_rollout").twixt_fused_tensor_rollout_envs_per_block
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        envs = fn(board_size, batch)
-    if envs < 1:
-        raise RuntimeError(
-            "fused_tensor_rollout launch shape: "
-            + _cuda.error_string("fused_tensor_rollout", -envs)
-        )
-    return envs
+    return _cuda.envs_per_block("fused_tensor_rollout", device, board_size, batch)
 
 
 def _launch(seed: int, board_size: int, num_steps: int, state: State, tile: int):
@@ -224,12 +219,8 @@ def _launch(seed: int, board_size: int, num_steps: int, state: State, tile: int)
     device = state.color.device
     cells = _cells(state).contiguous()
     scalars = _scalars(state).contiguous()
-    init = reset(board_size, device)
-    init_cells = _cells(init).contiguous()
-    init_scalars = _scalars(init).contiguous()
-    geo_table = torch.as_tensor(
-        list(geo.OFFSETS.reshape(-1)) + list(geo.CROSSERS.reshape(-1)), dtype=_I32
-    ).to(device)
+    init_cells, init_scalars = _initial_state(board_size, device)
+    geo_table = _cuda.geo_table(device)
     actions = torch.empty((num_steps, batch), dtype=_I32, device=device)
     results = torch.empty((num_steps, batch), dtype=_I32, device=device)
 

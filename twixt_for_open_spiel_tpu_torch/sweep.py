@@ -1,4 +1,4 @@
-"""Batch and grid sweeps of two of the port's kernels on one CUDA card.
+"""Batch and grid sweeps of the port's kernels on one CUDA card.
 
     python3 -m twixt_for_open_spiel_tpu_torch.sweep
 
@@ -6,6 +6,12 @@ Measurements for tuning, run on demand (``chip_smoke.py`` does not run
 them).  Every timed launch is held against the plain version, so no shape
 here passes unchecked:
 
+  * the bitboard rollout (``fused_bit_rollout``, K1), 1000 steps from the
+    initial state, at board 8 with batch 4096, 8448 and 33792 and at board
+    24 with batch 4096 and 8448, with the envs per block the kernel picks;
+    and K2 (``emit_obs=True``) at the obs row's shape (board 24, batch 8192,
+    16 steps); each timed launch's final state, counters (and wire) equal
+    the plain version's;
   * the canonical-engine rollout (``fused_random_rollout``, tile 256), 1000
     steps from the initial state, at batch 4096 and at 8448 and 33792 (64
     and 256 envs a SM on the card's 132 SMs), with the envs per block the
@@ -31,10 +37,15 @@ import sys
 
 import torch
 
+from twixt_for_open_spiel_tpu_torch.ops import bitboard as tbit
+from twixt_for_open_spiel_tpu_torch.ops import fused_bit_rollout as fbr
 from twixt_for_open_spiel_tpu_torch.ops import fused_tensor_rollout as ftr
 from twixt_for_open_spiel_tpu_torch.ops import rollout as troll
 from twixt_for_open_spiel_tpu_torch.ops import store_skeleton as sk
 
+BIT_ROWS = [(8, 4096), (8, 8448), (8, 33792), (24, 4096), (24, 8448)]  # board, batch
+BIT_STEPS = 1000
+OBS_ROW = (24, 8192, 16)  # board, batch, steps
 TENSOR_ROWS = [(8, 4096), (8, 8448), (8, 33792), (24, 4096), (24, 8448)]  # board, batch
 TENSOR_STEPS, TENSOR_TILE = 1000, 256
 STORE_ROWS, STORE_STEPS = 12 * 30, 16
@@ -51,6 +62,27 @@ def timed(fn):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop), out
+
+
+def bit_rows(dev) -> None:
+    for n, b, steps, emit in [(n, b, BIT_STEPS, False) for n, b in BIT_ROWS] + [(*OBS_ROW, True)]:
+        s0 = tbit.bit_reset(n, b, dev)
+        fbr.fused_bit_rollout(0, n, 10, s0, emit_obs=emit)  # warm-up
+        ms, got = timed(lambda: fbr.fused_bit_rollout(0, n, steps, s0, emit_obs=emit))
+        want = fbr.fused_bit_rollout_reference(0, n, steps, s0, emit_obs=emit)
+        pairs = list(zip(tbit.bitstate_leaves(got[0]), tbit.bitstate_leaves(want[0])))
+        pairs += [(got[1][k], want[1][k]) for k in ("episodes", "results")]
+        pairs += [(got[2], want[2])] if emit else []
+        if not all(torch.equal(a, c) for a, c in pairs):
+            raise RuntimeError(f"fused_bit_rollout != plain at n={n} batch={b} emit_obs={emit}")
+        envs = fbr.envs_per_block(n, b, emit, dev)
+        wire = ""
+        if emit:
+            nbytes = got[2].numel() * got[2].element_size()
+            wire = f", obs stream {nbytes / ms / 1e6} GB/s"
+        print(f"[K{2 if emit else 1} sweep] n={n} batch={b} envs/block={envs} "
+              f"blocks={-(-b // envs)} steps={steps}: {ms} ms -> "
+              f"{b * steps / ms * 1e3} env-steps/s{wire}; equal to the plain version")
 
 
 def tensor_rows(dev) -> None:
@@ -105,6 +137,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0])
+    bit_rows(dev)
     tensor_rows(dev)
     store_rows(dev)
     return 0
