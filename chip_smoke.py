@@ -2,9 +2,11 @@
 
     python3 chip_smoke.py
 
-Three paths, each with its kernel's launch count set to 0 just before the
-path and read just after (launches made to compare a kernel with its plain
-version come before and do not count).  Any failure ends the run with a
+Three kernel paths, each with its kernel's launch count set to 0 just before
+the path and read just after (launches made to compare a kernel with its
+plain version come before and do not count), then the net, the search and
+the arena, which run plain torch ops on the card (every launch count set
+to 0 before each and required to stay 0).  Any failure ends the run with a
 non-zero exit.
 
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -50,7 +52,34 @@ non-zero exit.
       over runs of launches back to back (a launch takes about 0.1 ms, near
       the wrapper's host time).
 
-The second-to-last line is a JSON object describing the kernels (K1 and K2
+  the net, the PUCT search and the arena (``models/``):
+  11. the full-width net (board 12, batch 512, 128 channels, 6 blocks) on
+      the card against the same net on the CPU, both loaded with one set of
+      seeded flax-layout parameters through ``convert.load_flax_params``:
+      float32 with TF32 off (|diff| <= 1e-4 of the output's scale) and
+      bfloat16 (<= 2**-4); and the JAX anchor: a small net's float32
+      outputs equal ``tests/fixtures/torch_port_net.json`` (<= 1e-5);
+  12. the bf16 forward's time (median of 20, CUDA events) beside its
+      bound, the convolutions' and Dense layers' FLOPs over 989 TFLOP/s;
+  13. ``search_batch`` with the table and uniform evaluators of
+      ``tests/test_mcts_exact.py`` over its scenarios, both backups and
+      both node-state gathers: root visits, ``root_q`` (<= 1e-5) and the
+      walks' iteration counts equal ``tests/fixtures/torch_port_search.json``;
+      ``one_rollout`` equals its JAX values; ``argmax`` takes the first
+      maximum on the card, an all -inf row included;
+  14. ``search_batch`` with the bf16 net at board 12, batch 512, 64
+      simulations, ``dirichlet_frac=0.25``: ms a search and a simulation,
+      the net calls' share (CUDA events around each), host syncs, peak
+      memory, and the invariants (visits sum to 64, none off the legal
+      set, |root_q| <= 1);
+  15. the deterministic table-net arena (board 5) against the tally and
+      final-board digest of ``tests/fixtures/torch_port_arena.json``; the
+      untrained full-width net against the random bot at board 8, batch
+      64, 16 simulations: tally, plies and moves a second.
+
+The net, search and arena lines with a time end with the card's name and
+power limit (printed alone first).  The
+second-to-last line is a JSON object describing the kernels (K1 and K2
 as entries of their own), each with
 its time, its plain version's time and its bound (the least time the card
 could take: bytes over 3.35 TB/s or the SASS-counted instructions over
@@ -60,6 +89,7 @@ device the script exits non-zero and prints no result.  It imports no jax.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import pathlib
 import statistics
@@ -69,6 +99,8 @@ import time
 
 import torch
 
+from twixt_for_open_spiel_tpu_torch.models import arena, convert, mcts
+from twixt_for_open_spiel_tpu_torch.models.network import call_net, create_net
 from twixt_for_open_spiel_tpu_torch.ops import _cuda, _sass
 from twixt_for_open_spiel_tpu_torch.ops import bitboard as tbit
 from twixt_for_open_spiel_tpu_torch.ops import fused_bit_rollout as fbr
@@ -79,6 +111,19 @@ from twixt_for_open_spiel_tpu_torch.ops import state as tstate
 from twixt_for_open_spiel_tpu_torch.ops import store_skeleton as sk
 
 ROOT = pathlib.Path(__file__).resolve().parent
+
+
+def _load_cases():
+    """``tests/torch_port_cases.py`` by its path: the card's machine may hold
+    another package named ``tests``."""
+    path = ROOT / "tests" / "torch_port_cases.py"
+    spec = importlib.util.spec_from_file_location("torch_port_cases", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+cases = _load_cases()
 FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_rollout_digests.json"
 TENSOR_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_tensor_rollout_digests.json"
 KERNELS = ("fused_bit_rollout", "fused_tensor_rollout", "store_skeleton")
@@ -138,6 +183,25 @@ ROLLOUT_ROW = (12, 4096, 8)  # random_rollout: board, batch, steps
 # grid * subl * lanes = its batch, one program per 256-env block as in K2
 STORE_SHAPE = (12 * 30, 16, 2, 128, 32)  # rows, steps, subl, lanes, grid
 STORE_REPS = 20
+
+# --- the net, the search and the arena (plain torch on the card) ------------
+NET_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_net.json"
+SEARCH_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_search.json"
+ARENA_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_arena.json"
+# board 12 (BASELINE config 5) at create_net's full width, the batch and
+# simulations of scripts/train_arena_gate.py:47-49
+NET_ROW = (12, 512)  # board, batch
+NET_SEED, OBS_SEED = 1, 2
+SEARCH_SIMS = 64
+SEARCH_REPS = 3
+NET_REPS = 20
+ARENA_ROW = (8, 64, 16)  # board, batch, simulations: the full-width net vs the random bot
+# |card - cpu| <= tol * max(1, max |cpu|): float32 with TF32 off (tight), and
+# bfloat16 (its rounding at every layer; the bf16 - f32 gap is about 2**-7
+# of the scale there on the CPU)
+NET_TOL = {"f32": 1e-4, "bf16": 2.0**-4}
+# the card's dense bfloat16 tensor-core peak (H100 SXM, NVIDIA's data sheet)
+BF16_FLOPS_PER_S = 989e12
 
 
 def require(ok: bool, what: str) -> None:
@@ -641,6 +705,218 @@ def store_path(dev, obs_bytes_per_s: float) -> dict:
     }
 
 
+class no_tf32:
+    """cuDNN convolutions and matmuls in true float32 inside the block."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max(1, max |want|), both moved to the CPU."""
+    got, want = got.float().cpu(), want.float().cpu()
+    require(got.shape == want.shape and bool(torch.isfinite(got).all()), "finite outputs")
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def net_flops(net, batch: int) -> int:
+    """Multiply-adds x 2 of the net's convolutions and Dense layers."""
+    n = net.board_size
+    cells = n * (n - 2)
+    flops = 0
+    for name, w in net.named_parameters():
+        if name.endswith("weight") and w.ndim == 4:  # conv OIHW over every cell
+            flops += 2 * batch * cells * w.numel()
+        elif name.endswith("weight") and w.ndim == 2:  # Dense [out, in]
+            flops += 2 * batch * w.numel()
+    return flops
+
+
+def no_kernel_launched(what: str) -> None:
+    require(fbr.fused_bit_rollout.launches == ftr.fused_random_rollout.launches
+            == sk.store_skeleton.launches == 0, f"{what} runs no rollout kernel")
+
+
+def net_path(dev, card: str) -> float:
+    """Phases 11-12: the net on the card against the CPU and the JAX anchor;
+    the bf16 forward's time at full width.  Returns that time in ms."""
+    zero_counts()
+    n, b = NET_ROW
+    tree = convert.params_to_flax(cases.random_state_dict(n, 128, 6, NET_SEED))
+    obs = torch.from_numpy(cases.random_obs(b, n, OBS_SEED))
+    for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        on_card = convert.load_flax_params(create_net(n, dtype=dtype, device=dev), tree)
+        on_cpu = convert.load_flax_params(create_net(n, dtype=dtype, device="cpu"), tree)
+        with torch.no_grad(), no_tf32():
+            card_out = on_card(obs.to(dev))
+            torch.cuda.synchronize()
+            cpu_out = on_cpu(obs)
+        errs = [rel_err(c, w) for c, w in zip(card_out, cpu_out)]
+        print(f"[net equal] n={n} batch={b} 128 channels 6 blocks {kind} (TF32 off): "
+              f"card vs CPU max |diff| / scale logits {errs[0]} value {errs[1]} "
+              f"(tolerance {NET_TOL[kind]}); value range "
+              f"[{float(cpu_out[1].min())}, {float(cpu_out[1].max())}]")
+        require(max(errs) <= NET_TOL[kind], f"{kind} net card vs CPU")
+
+    rec = json.loads(NET_FIXTURE.read_text())
+    rn, ch, blocks = rec["board_size"], rec["channels"], rec["blocks"]
+    small = create_net(rn, ch, blocks, dtype=torch.float32, device=dev)
+    small.load_state_dict(cases.random_state_dict(rn, ch, blocks, rec["param_seed"]))
+    with torch.no_grad(), no_tf32():
+        logits, value = small(torch.from_numpy(
+            cases.random_obs(rec["batch"], rn, rec["obs_seed"])).to(dev))
+    errs = [rel_err(logits, torch.tensor(rec["logits"])), rel_err(value, torch.tensor(rec["value"]))]
+    print(f"[net anchor] n={rn} {ch} channels {blocks} block f32 vs JAX "
+          f"(tests/fixtures/torch_port_net.json): logits {errs[0]} value {errs[1]} (tolerance 1e-05)")
+    require(max(errs) <= 1e-5, "the net on the card vs the JAX anchor")
+
+    net = create_net(n, device=dev)
+    x = obs.to(dev)
+    with torch.no_grad():
+        net(x)  # warm-up
+        ms = timed_ms(lambda: net(x), NET_REPS)
+    med = statistics.median(ms)
+    flops = net_flops(net, b)
+    bound_ms = flops / BF16_FLOPS_PER_S * 1e3
+    print(f"[net rate] bf16 forward n={n} batch={b} 128 channels 6 blocks: median {med} ms "
+          f"of {NET_REPS} ({min(ms)}-{max(ms)}); {flops / 1e9} GFLOP -> "
+          f"{flops / med / 1e9} TFLOP/s; bound {bound_ms} ms at {BF16_FLOPS_PER_S / 1e12} "
+          f"TFLOP/s bf16 dense (operations), share {bound_ms / med} [{card}]")
+    no_kernel_launched("the net path")
+    return med
+
+
+def search_path(dev, card: str, net_ms: float) -> None:
+    """Phases 13-14: search_batch against the JAX fixture (both backups,
+    both gathers), one_rollout against JAX's values; the full-width search's
+    time and invariants."""
+    zero_counts()
+    row = torch.full((2, 7), -torch.inf, device=dev)
+    row[1, 3:] = 2.0
+    require(row.argmax(-1).tolist() == [0, 3], "argmax takes the first maximum on the card")
+    rec = json.loads(SEARCH_FIXTURE.read_text())
+    dense = mcts._DENSE_GATHER_MAX_NODES
+    for case in rec["search"]:
+        n, sims, kind = case["board_size"], case["num_simulations"], case["evaluator"]
+        roots = cases.scenario_roots(case["scenarios"], n, dev)
+        for backup in ("amask", "walk"):
+            for gather, limit in (("dense", dense), ("gather", 0)):
+                mcts._DENSE_GATHER_MAX_NODES = limit
+                probs, root_q, stats = mcts.search_batch(
+                    None, roots, torch.Generator(device=dev).manual_seed(0),
+                    evaluator=cases.EVALUATORS[kind](n * n), board_size=n,
+                    num_simulations=sims, dirichlet_frac=0.0, backup=backup,
+                    return_stats=True)
+                mcts._DENSE_GATHER_MAX_NODES = dense
+                visits = (probs * sims).round().long().cpu()
+                q_err = float((root_q.cpu() - torch.tensor(case["root_q"])).abs().max())
+                same = torch.equal(visits, torch.tensor(case["visits"]))
+                print(f"[search equal] n={n} sims={sims} {kind} {backup} {gather}: visits "
+                      f"{'equal' if same else 'DIFFER'} (envs {len(case['scenarios'])}), "
+                      f"|root_q - JAX| {q_err}, walks {stats}")
+                require(same, f"root visits vs JAX at n={n} sims={sims} {kind} {backup} {gather}")
+                require(q_err <= 1e-5, "root_q vs JAX")
+                want_bk = case["backup_iters"] if backup == "walk" else 0
+                require(stats == {"sel_iters": case["sel_iters"], "backup_iters": want_bk},
+                        "walk iterations vs JAX")
+    for case in rec["rollout"]:
+        n = case["board_size"]
+        got = mcts.one_rollout(cases.scenario_roots(case["scenarios"], n, dev), n, case["seed"])
+        print(f"[search equal] one_rollout n={n} seed={case['seed']}: {got.tolist()}")
+        require(got.cpu().tolist() == case["values"], "one_rollout vs JAX")
+
+    n, b = NET_ROW
+    net = create_net(n, device=dev)
+    roots = tbit.bit_random_rollout(3, n, 24, tbit.bit_reset(n, b, dev))[0]
+    net_events = []
+
+    def timed_net(params, obs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = call_net(params, obs)
+        stop.record()
+        net_events.append((start, stop))
+        return out
+
+    evaluator = mcts.net_evaluator(timed_net, n)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def search():
+        return mcts.search_batch(net, roots, gen, evaluator=evaluator, board_size=n,
+                                 num_simulations=SEARCH_SIMS, dirichlet_frac=0.25,
+                                 return_stats=True)
+
+    search()  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    runs, shares = [], []
+    for _ in range(SEARCH_REPS):
+        net_events.clear()
+        t0 = time.perf_counter()
+        probs, root_q, stats = search()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+        shares.append(sum(a.elapsed_time(z) for a, z in net_events) / runs[-1])
+        require(len(net_events) == SEARCH_SIMS + 1, "one net call a simulation and the root")
+    legal = tbit.bit_legal_mask_flat(roots, roots.current_player.clamp(0, 1), n).T
+    visits = (probs * SEARCH_SIMS).round()
+    require(bool((visits.sum(-1) == SEARCH_SIMS).all()), "root visits sum to the simulations")
+    require(bool((probs[~legal] == 0).all()), "visit_probs zero off the legal set")
+    require(bool(torch.isfinite(root_q).all()) and bool((root_q.abs() <= 1).all()), "|root_q| <= 1")
+    med = statistics.median(runs)
+    print(f"[search rate] search_batch n={n} batch={b} sims={SEARCH_SIMS} bf16 net, "
+          f"dirichlet_frac=0.25, backup auto (amask), dense gather: median {med} ms of {runs} "
+          f"-> {med / SEARCH_SIMS} ms a simulation, {b * SEARCH_SIMS / med * 1e3} "
+          f"simulations/s; net calls {statistics.median(shares)} of the time "
+          f"(CUDA events around each call; {SEARCH_SIMS + 1} x the [net rate] median = "
+          f"{(SEARCH_SIMS + 1) * net_ms / med}); host syncs {stats['sel_iters']} selection "
+          f"walk iterations = {stats['sel_iters'] / SEARCH_SIMS} a simulation; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20} MiB; invariants hold [{card}]")
+    no_kernel_launched("the search path")
+
+
+def arena_path(dev, card: str) -> None:
+    """Phase 15: the deterministic table-net arena against the JAX fixture,
+    then the full-width net against the random bot."""
+    zero_counts()
+    rec = json.loads(ARENA_FIXTURE.read_text())
+    n = rec["board_size"]
+    got = arena.arena_match(
+        cases.arena_table_params(n * n, 0, dev), cases.arena_table_params(n * n, 1, dev),
+        torch.Generator(device=dev).manual_seed(0), net_apply=cases.arena_table_net,
+        board_size=n, batch=rec["batch"], num_simulations=rec["num_simulations"],
+        temp_moves=0, device=dev)
+    tally = {k: float(got[k]) for k in rec["tally"]}
+    digest = tbit.state_digest(got["final_state"])
+    print(f"[arena] table nets n={n} batch={rec['batch']} sims={rec['num_simulations']} "
+          f"temp_moves=0: {tally}, final digest {digest[:16]}")
+    require(tally == rec["tally"], "arena tally vs JAX")
+    require(digest == rec["digest"], "arena final boards vs JAX")
+
+    n, b, sims = ARENA_ROW
+    net = create_net(n, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = arena.arena_match(net, net, torch.Generator(device=dev).manual_seed(0),
+                            board_size=n, batch=b, num_simulations=sims, random_b=True,
+                            device=dev)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    final = got["final_state"]
+    require(bool((final.result != geo.RESULT_OPEN).all()), "every arena game ended")
+    require(got["a_wins"] + got["b_wins"] + got["draws"] == b, "the tally covers every game")
+    env_moves = int(final.move_counter.sum())
+    print(f"[arena] untrained net (128 channels, 6 blocks, bf16) vs random_b n={n} batch={b} "
+          f"sims={sims}: {dict((k, got[k]) for k in ('a_wins', 'b_wins', 'draws', 'a_score'))}, "
+          f"{got['moves']} lockstep plies, {env_moves} moves played in {s} s -> "
+          f"{got['moves'] / s} plies/s, {env_moves / s} moves/s [{card}]")
+    no_kernel_launched("the arena path")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -660,6 +936,9 @@ def main() -> int:
     bit = bitboard_path(dev, sass)
     tensor = tensor_path(dev, sass, bit["rates"])
     store = store_path(dev, bit["obs_bytes_per_s"])
+    net_ms = net_path(dev, card)
+    search_path(dev, card, net_ms)
+    arena_path(dev, card)
 
     print(json.dumps({"kernels": [*bit["reports"], tensor, store]}))
     print(json.dumps({"ok": True, "device": {

@@ -75,7 +75,9 @@ def test_emit_obs_matches_jax_kernel_and_xla_wire():
     ref = np.asarray(wire).reshape(steps, b, 12, p).transpose(0, 2, 3, 1)
     np.testing.assert_array_equal(obs.numpy(), ref.astype(np.int64))
     # the port's own emitter gives the same wire
-    _, _, twire = tbit.bit_rollout_emit_obs(seed, n, steps, tbit.bit_reset(n, b, "cpu"))
+    _, _, twire = tbit.bit_rollout_emit_obs(
+        seed, n, steps, tbit.bit_reset(n, b, "cpu"), packed=True
+    )
     np.testing.assert_array_equal(twire.numpy(), np.asarray(wire).astype(np.int64))
 
 

@@ -79,9 +79,12 @@ def _imported_modules(path):
 
 
 def test_port_source_imports_no_jax():
-    # the package and the script that drives it on the card
-    files = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]
-    assert len(files) >= 12
+    # the package (models/ included), the script that drives it on the card
+    # and the test inputs that script shares
+    files = sorted(PORT.rglob("*.py")) + [
+        PORT.parent / "chip_smoke.py", PORT.parent / "tests" / "torch_port_cases.py"]
+    assert len(files) >= 18
+    assert {"mcts.py", "network.py", "convert.py", "arena.py"} <= {f.name for f in files}
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -94,10 +97,11 @@ def test_importing_port_loads_no_jax():
     # every module of the port, found on disk so a new one is never missed;
     # importing them loads and builds no kernel
     modules = sorted(
-        "twixt_for_open_spiel_tpu_torch.ops." + path.stem
-        for path in (PORT / "ops").glob("*.py") if path.stem != "__init__"
-    )
-    assert len(modules) >= 10
+        f"twixt_for_open_spiel_tpu_torch.{sub}." + path.stem
+        for sub in ("ops", "models")
+        for path in (PORT / sub).glob("*.py") if path.stem != "__init__"
+    ) + ["twixt_for_open_spiel_tpu_torch.models", "tests.torch_port_cases"]
+    assert len(modules) >= 16
     code = (
         "import importlib, sys\n"
         "import twixt_for_open_spiel_tpu_torch as tw\n"

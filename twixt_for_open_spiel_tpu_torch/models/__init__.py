@@ -1,0 +1,57 @@
+"""The AlphaZero stack of the port (``twixt_for_open_spiel_tpu/models``).
+
+  network.py   ``AZNet`` (NHWC, float32 parameters, bfloat16 compute),
+               ``create_net``, ``init_params``, ``masked_policy``,
+               ``call_net`` (the ``net_apply`` of a torch net)
+  convert.py   flax parameters <-> the port's ``state_dict``:
+               ``params_from_flax``, ``params_to_flax``,
+               ``load_flax_params``
+  mcts.py      the batched PUCT search on the bitboard engine:
+               ``search_batch``, ``batched_search``, ``net_evaluator``,
+               ``rollout_evaluator`` with its seed-level ``one_rollout``,
+               ``dirichlet``
+  arena.py     ``arena_match``: lockstep games between two nets, or a net
+               and the random bot
+
+Gumbel search, tree reuse, self-play and training are not ported yet
+(``ROADMAP.md`` Queue 1).  The modules import torch and numpy only, and
+their entry points put tensors on the card unless given ``device="cpu"``.
+"""
+
+from twixt_for_open_spiel_tpu_torch.models.arena import arena_match
+from twixt_for_open_spiel_tpu_torch.models.convert import (
+    load_flax_params,
+    params_from_flax,
+    params_to_flax,
+)
+from twixt_for_open_spiel_tpu_torch.models.mcts import (
+    batched_search,
+    net_evaluator,
+    one_rollout,
+    rollout_evaluator,
+    search_batch,
+)
+from twixt_for_open_spiel_tpu_torch.models.network import (
+    AZNet,
+    call_net,
+    create_net,
+    init_params,
+    masked_policy,
+)
+
+__all__ = [
+    "AZNet",
+    "arena_match",
+    "batched_search",
+    "call_net",
+    "create_net",
+    "init_params",
+    "load_flax_params",
+    "masked_policy",
+    "net_evaluator",
+    "one_rollout",
+    "params_from_flax",
+    "params_to_flax",
+    "rollout_evaluator",
+    "search_batch",
+]

@@ -1,0 +1,510 @@
+"""Batched AlphaZero PUCT search on the bitboard engine
+(``twixt_for_open_spiel_tpu/models/mcts.py``): one array-of-trees search.
+
+Every tree array carries a leading ``[B]`` env axis and every phase of a
+simulation is a whole-batch tensor op, as in the JAX search: child-side
+best-edge scoring over the ``[B, nodes]`` slots, a masked-prior array
+``uprior`` whose ``-1`` marks an illegal or already-expanded edge, one
+batched ``step_bits`` per simulation for the expansion, one batched
+evaluator call, and either backup (ancestor masks or the parent-chain
+walk).  The float32 PUCT scores keep the JAX search's order of operations
+and its three tie rules, so with deterministic evaluators and no root noise
+the root visit counts equal JAX's integer for integer.
+
+Host syncs.  JAX's selection and backup walks are ``while_loop``s on
+``any(...)``; here each walk iteration ends with one ``any()`` read by the
+host (one sync), and the first iteration runs unconditionally, as the JAX
+loop's first test always holds.  A simulation syncs once per selection
+iteration (the deepest env's depth plus one) and, under the walk backup,
+once per backup iteration (the deepest leaf's depth plus one); the ancestor
+mask backup needs none.  ``return_stats`` counts both.
+
+Randomness comes from one ``torch.Generator`` on the search's device, used
+in turn by the evaluator and the Dirichlet root noise (gamma draws by
+Marsaglia and Tsang).  ``jax.random`` streams cannot be matched bit for bit,
+so those parts agree with JAX in distribution only.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from twixt_for_open_spiel_tpu_torch.models.network import masked_policy
+from twixt_for_open_spiel_tpu_torch.ops import geometry as geo
+from twixt_for_open_spiel_tpu_torch.ops.bitboard import (
+    BitState,
+    bit_legal_mask_flat,
+    bitstate_from_leaves,
+    bitstate_leaves,
+    from_state,
+    rollout_noise,
+    sample_bits,
+    step_bits,
+)
+from twixt_for_open_spiel_tpu_torch.ops.observe import bit_observation_nchw
+
+NO_NODE = -1
+_I32 = torch.int32
+_I64 = torch.int64
+
+# "auto" backup takes the ancestor masks up to this many tree nodes and the
+# parent-chain walk above (JAX's setting, chosen on the TPU; the crossover
+# on the card is not measured yet).
+_AMASK_MAX_NODES = 160
+
+# _gather_node_state takes the dense one-hot select up to this many tree
+# nodes and the per-element gather above (JAX's setting, as above).
+_DENSE_GATHER_MAX_NODES = 100
+
+
+def _resolve_backup(backup: str, nodes: int) -> bool:
+    """True for the ancestor-mask backup, False for the walk."""
+    if backup not in ("auto", "amask", "walk"):
+        raise ValueError(f"backup must be auto, amask or walk, not {backup!r}")
+    if backup == "auto":
+        return nodes <= _AMASK_MAX_NODES
+    return backup == "amask"
+
+
+class Tree(NamedTuple):
+    """Flat search trees for the whole env batch (the JAX ``Tree``).
+
+    Stats are batch-leading; node states are stacked buffers with a leading
+    ``[nodes]`` axis over the engine's batch-trailing layout.  Node ids and
+    actions are int64 here (torch indexes with int64), int32 in JAX.
+    """
+
+    visit: torch.Tensor      # int32 [B, nodes]
+    value_sum: torch.Tensor  # f32 [B, nodes]
+    uprior: torch.Tensor     # f32 [B, nodes, A] masked prior (-1 = dead)
+    parent: torch.Tensor     # int64 [B, nodes]
+    pa: torch.Tensor         # int64 [B, nodes] action taken at the parent
+    e_prior: torch.Tensor    # f32 [B, nodes] prior of the edge into a node
+    terminal: torch.Tensor   # bool [B, nodes]
+    # value of a terminal node from the perspective of the player to move
+    # at its PARENT; 0 for non-terminal
+    tval: torch.Tensor       # f32 [B, nodes]
+    linked: torch.Tensor     # bool [B, nodes] slot actually in the tree
+    root_child: torch.Tensor  # int64 [B, A] child node id of root edges / -1
+    # root-path sets and depths for the amask backup; [B, 1, 1] and [B, 1]
+    # placeholders under the walk backup
+    amask: torch.Tensor      # bool [B, nodes, nodes] or [B, 1, 1]
+    depth: torch.Tensor      # int32 [B, nodes] or [B, 1]
+    planes: torch.Tensor     # int32 [nodes, 16, P, B] packed bitplanes
+    compid: torch.Tensor     # int16 [nodes, N, N, B]
+    scalars: torch.Tensor    # int32 [nodes, 5, B]
+
+
+# --- stacked node-state buffers <-> BitState ------------------------------
+# plane order: red, blue, links[0..3], blocked[0..3], legal[0..1], flags[0..3]
+
+
+def _stack_planes(bs: BitState) -> torch.Tensor:
+    return torch.stack((bs.red, bs.blue) + bs.links + bs.blocked + bs.legal + bs.flags)
+
+
+def _stack_scalars(bs: BitState) -> torch.Tensor:
+    return torch.stack([bs.current_player, bs.move_counter, bs.move_one,
+                        bs.swapped, bs.result])
+
+
+def _unstack_bitstate(planes, compid, scalars) -> BitState:
+    return BitState(
+        red=planes[0],
+        blue=planes[1],
+        links=tuple(planes[2 + i] for i in range(4)),
+        blocked=tuple(planes[6 + i] for i in range(4)),
+        legal=(planes[10], planes[11]),
+        flags=tuple(planes[12 + i] for i in range(4)),
+        compid=compid,
+        current_player=scalars[0],
+        move_counter=scalars[1],
+        move_one=scalars[2],
+        swapped=scalars[3],
+        result=scalars[4],
+    )
+
+
+def _gather_node_state(tree: Tree, node: torch.Tensor) -> BitState:
+    """Per-env node state: [nodes, ..., B] buffers x node [B] -> [..., B].
+
+    Two bit-identical forms, picked by tree size
+    (``_DENSE_GATHER_MAX_NODES``): a dense one-hot select-and-reduce over
+    every slot, and a per-element gather of the selected slot.
+    """
+    nodes = tree.planes.shape[0]
+    if nodes <= _DENSE_GATHER_MAX_NODES:
+        def leaf(buf):
+            iota = torch.arange(nodes, device=buf.device).reshape(
+                (nodes,) + (1,) * (buf.ndim - 1))
+            oh = node.reshape((1,) * (buf.ndim - 1) + node.shape) == iota
+            return torch.where(oh, buf, 0).sum(dim=0, dtype=buf.dtype)
+    else:
+        def leaf(buf):
+            idx = node.reshape((1,) * (buf.ndim - 1) + node.shape)
+            return buf.gather(0, idx.expand((1,) + buf.shape[1:]))[0]
+
+    return _unstack_bitstate(leaf(tree.planes), leaf(tree.compid), leaf(tree.scalars))
+
+
+def _set_node_state(tree: Tree, node: int, bs: BitState) -> None:
+    """Write one node slot (the same slot in every env), in place."""
+    tree.planes[node] = _stack_planes(bs)
+    tree.compid[node] = bs.compid
+    tree.scalars[node] = _stack_scalars(bs)
+
+
+def _best_edge(tree: Tree, env: torch.Tensor, node: torch.Tensor, c_puct: float):
+    """Best PUCT edge at each env's ``node``: (action, kid, kid_term).
+
+    ``kid`` is the chosen child slot (-1 when the best edge is unexpanded);
+    ``kid_term`` marks a chosen terminal child.  Expanded edges are scored
+    child-side: one ``[B, nodes]`` pass masks the slots whose ``parent`` is
+    the current node.
+    """
+    up_row = tree.uprior[env, node]                            # [B, A]
+    tot = tree.visit[env, node]
+    sq = torch.sqrt(tot.clamp_min(1).float())                  # [B]
+
+    # unexpanded edges: masked prior row (-1 = illegal or expanded); the
+    # first of equal scores is the lowest action
+    sc_u = torch.where(up_row >= 0, c_puct * up_row * sq[:, None], -math.inf)
+    bu_s = sc_u.amax(-1)
+    bu_a = sc_u.argmax(-1)
+
+    # expanded edges, child-side over all node slots; ties go to the lowest
+    # slot (creation order)
+    valid = tree.linked & (tree.parent == node[:, None])      # [B, nodes]
+    # child value stored from the child's mover's perspective; the parent
+    # wants -Q; terminal children hold their exact value for the parent
+    q = torch.where(
+        tree.terminal, tree.tval,
+        -tree.value_sum / tree.visit.clamp_min(1).float(),
+    )
+    u = c_puct * tree.e_prior * sq[:, None] / (1.0 + tree.visit.float())
+    sc_c = torch.where(valid, q + u, -math.inf)
+    bc_s = sc_c.amax(-1)
+    c_star = sc_c.argmax(-1)
+    bc_a = tree.pa[env, c_star]
+    bc_t = tree.terminal[env, c_star]
+
+    # a tie between an expanded and an unexpanded edge goes to the lower action
+    expanded_wins = (bc_s > bu_s) | ((bc_s == bu_s) & (bc_a < bu_a))
+    action = torch.where(expanded_wins, bc_a, bu_a)
+    kid = torch.where(expanded_wins, c_star, NO_NODE)
+    kid_term = expanded_wins & bc_t
+    return action, kid, kid_term
+
+
+def _init_tree(bs: BitState, batch: int, nodes: int, a_dim: int, root_value,
+               root_uprior, use_amask: bool = False) -> Tree:
+    """Fresh array-of-trees state: root at slot 0, one visit, given prior;
+    every node slot holds a copy of the root state."""
+    dev = bs.red.device
+
+    def alloc(x):
+        return x.unsqueeze(0).expand((nodes,) + x.shape).clone()
+
+    def full(shape, value, dtype):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    if use_amask:
+        amask = full((batch, nodes, nodes), False, torch.bool)
+        amask[:, 0, 0] = True
+        depth = full((batch, nodes), 0, _I32)
+    else:
+        amask = full((batch, 1, 1), False, torch.bool)
+        depth = full((batch, 1), 0, _I32)
+    visit = full((batch, nodes), 0, _I32)
+    visit[:, 0] = 1
+    value_sum = full((batch, nodes), 0.0, torch.float32)
+    value_sum[:, 0] = root_value
+    uprior = full((batch, nodes, a_dim), -1.0, torch.float32)
+    uprior[:, 0] = root_uprior
+    linked = full((batch, nodes), False, torch.bool)
+    linked[:, 0] = True
+    return Tree(
+        visit=visit,
+        value_sum=value_sum,
+        uprior=uprior,
+        parent=full((batch, nodes), NO_NODE, _I64),
+        pa=full((batch, nodes), 0, _I64),
+        e_prior=full((batch, nodes), 0.0, torch.float32),
+        terminal=full((batch, nodes), False, torch.bool),
+        tval=full((batch, nodes), 0.0, torch.float32),
+        linked=linked,
+        root_child=full((batch, a_dim), NO_NODE, _I64),
+        amask=amask,
+        depth=depth,
+        planes=alloc(_stack_planes(bs)),
+        compid=alloc(bs.compid),
+        scalars=alloc(_stack_scalars(bs)),
+    )
+
+
+def _outcome_value(result: torch.Tensor, player: torch.Tensor) -> torch.Tensor:
+    """+1 if ``player`` won, 0 on a draw, -1 otherwise (float32)."""
+    return torch.where(
+        result == geo.RESULT_RED_WIN + player, 1.0,
+        torch.where(result == geo.RESULT_DRAW, 0.0, -1.0),
+    )
+
+
+def _make_simulate(*, params, generator, evaluator, board_size: int, batch: int,
+                   nodes: int, a_dim: int, c_puct: float, use_amask: bool, dev):
+    """One simulation (selection -> expansion -> evaluation -> backup) as
+    ``simulate(sim, tree) -> (sel_iters, backup_iters)``; it updates
+    ``tree`` in place.  Simulation ``sim`` expands into slot ``1 + sim``
+    in every env."""
+    env = torch.arange(batch, device=dev)
+    iota_a = torch.arange(a_dim, device=dev)
+    iota_n = torch.arange(nodes, device=dev)
+
+    def simulate(sim: int, tree: Tree):
+        new_node = 1 + sim  # next free slot (uniform over envs)
+
+        # --- selection: all envs walk down in lockstep until each env's
+        # best edge is unexpanded or leads to a terminal child
+        node = torch.zeros(batch, dtype=_I64, device=dev)
+        action, kid, kid_term = _best_edge(tree, env, node, c_puct)
+        can = torch.ones(batch, dtype=torch.bool, device=dev)
+        sel_iters = 0
+        while True:
+            descend = can & (kid >= 0) & ~kid_term
+            node = torch.where(descend, kid.clamp_min(0), node)
+            a, k, kt = _best_edge(tree, env, node, c_puct)
+            action = torch.where(descend, a, action)
+            kid = torch.where(descend, k, kid)
+            kid_term = torch.where(descend, kt, kid_term)
+            can = descend
+            sel_iters += 1
+            if not bool(can.any()):
+                break
+        leaf_parent, existing_kid = node, kid
+        # an existing child here is terminal (selection stops only on a
+        # missing or terminal child): no expansion, its exact value is
+        # backed up again
+        revisit = existing_kid >= 0
+
+        # --- expansion: one batched bitboard step from the parent states
+        parent_state = _gather_node_state(tree, leaf_parent)
+        child_state = step_bits(parent_state, board_size, action)
+        child_terminal = child_state.result != geo.RESULT_OPEN
+        parent_player = parent_state.current_player.clamp(0, 1)
+        term_val = torch.where(
+            child_terminal, _outcome_value(child_state.result, parent_player), 0.0)
+
+        child_player = child_state.current_player.clamp(0, 1)
+        child_legal = bit_legal_mask_flat(child_state, child_player, board_size).T
+        logits, value = evaluator(params, child_state, generator)
+        prior = masked_policy(logits, child_legal)
+        # leaf value from the perspective of the player to move at the
+        # child; a terminal value is the parent's, so negated
+        backup_value = torch.where(child_terminal, -term_val, value)
+        node_id = torch.where(revisit, existing_kid, new_node)
+
+        # the new node goes to slot new_node unconditionally; for revisit
+        # envs the slot holds unlinked garbage (linked=False keeps it out
+        # of every child-side pass)
+        e_prior_new = tree.uprior[env, leaf_parent, action]  # >= 0: live edge
+        if use_amask:
+            parent_amask = tree.amask[env, leaf_parent]  # [B, nodes]
+            parent_depth = tree.depth[env, leaf_parent]
+            tree.amask[:, new_node] = parent_amask | (iota_n == new_node)
+            tree.depth[:, new_node] = parent_depth + 1
+        # retire the expanded edge (a no-op re-retire for revisit envs)
+        tree.uprior[env, leaf_parent, action] = -1.0
+        tree.uprior[:, new_node] = torch.where(child_legal, prior, -1.0)
+        tree.parent[:, new_node] = leaf_parent
+        tree.pa[:, new_node] = action
+        tree.e_prior[:, new_node] = e_prior_new
+        tree.terminal[:, new_node] = child_terminal
+        tree.tval[:, new_node] = term_val
+        tree.linked[:, new_node] = ~revisit
+        root_edge = (~revisit & (leaf_parent == 0))[:, None] & (action[:, None] == iota_a)
+        tree.root_child.masked_fill_(root_edge, new_node)
+        _set_node_state(tree, new_node, child_state)
+
+        # --- backup: values alternate sign per level, +backup_value at the
+        # leaf; one float add per path node in both variants
+        if use_amask:
+            path = tree.amask[env, node_id]                      # [B, nodes]
+            leaf_depth = tree.depth[env, node_id]
+            sign = 1.0 - 2.0 * ((leaf_depth[:, None] - tree.depth) & 1).float()
+            tree.visit.add_(path.to(_I32))
+            tree.value_sum.add_(torch.where(path, backup_value[:, None] * sign, 0.0))
+            return sel_iters, 0
+
+        node, v, bk_iters = node_id, backup_value, 0
+        while True:
+            live = node >= 0
+            idx = node.clamp_min(0)
+            tree.visit[env, idx] += live.to(_I32)
+            tree.value_sum[env, idx] += torch.where(live, v, 0.0)
+            node = torch.where(live, tree.parent[env, idx], NO_NODE)
+            v = -v
+            bk_iters += 1
+            if not bool((node >= 0).any()):
+                break
+        return sel_iters, bk_iters
+
+    return simulate
+
+
+def net_evaluator(net_apply, board_size: int):
+    """Batched leaf evaluator backed by a policy/value net.
+
+    Evaluators map (params, bitstate [.., B], generator) -> (logits [B, A],
+    value [B]), the value from the perspective of the player to move.
+    ``net_apply(params, obs)`` runs the net (``network.call_net`` for a
+    torch module passed as ``params``)."""
+
+    def evaluate(params, bs: BitState, generator):
+        del generator
+        return net_apply(params, bit_observation_nchw(bs, board_size))
+
+    return evaluate
+
+
+def one_rollout(bs: BitState, board_size: int, seed) -> torch.Tensor:
+    """One lockstep uniform random playout of every env to its end: +1 if
+    the player to move at ``bs`` wins, 0 on a draw, -1 on a loss (float32
+    [B]).  Move i of env e draws from ``rollout_noise(seed, i, e)``, the
+    counter hash of the JAX rollout evaluator, so a u32 ``seed`` (an int or
+    an int64 tensor) gives JAX's values bit for bit.  Finished envs are
+    frozen; the host reads ``any(open)`` once a move."""
+    n = board_size
+    to_move = bs.current_player.clamp(0, 1)
+    env = torch.arange(bs.current_player.shape[-1], dtype=_I64, device=bs.red.device)
+    s = bs
+    for i in range(n * n):  # >= any remaining game length (MaxGameLength = n*n-3)
+        open_ = s.result == geo.RESULT_OPEN
+        if not bool(open_.any()):
+            break
+        a = sample_bits(s, n, rollout_noise(seed, i, env))
+        nxt = step_bits(s, n, a)
+        s = bitstate_from_leaves(
+            torch.where(open_, new, old)
+            for new, old in zip(bitstate_leaves(nxt), bitstate_leaves(s))
+        )
+    return _outcome_value(s.result, to_move)
+
+
+def rollout_evaluator(board_size: int, rollout_count: int = 1):
+    """Batched leaf evaluator backed by uniform random playouts (vanilla
+    MCTS, OpenSpiel's RandomRolloutEvaluator): the mean of
+    ``rollout_count`` :func:`one_rollout` values, each from a u32 seed
+    drawn from the generator; priors are uniform (zero logits)."""
+    n = board_size
+
+    def evaluate(params, bs: BitState, generator):
+        del params
+        batch = bs.current_player.shape[-1]
+        total = torch.zeros(batch, dtype=torch.float32, device=bs.red.device)
+        for _ in range(rollout_count):
+            seed = torch.randint(0, 1 << 32, (), generator=generator,
+                                 device=bs.red.device, dtype=_I64)
+            total = total + one_rollout(bs, n, seed)
+        logits = torch.zeros((batch, n * n), dtype=torch.float32, device=bs.red.device)
+        return logits, total / rollout_count
+
+    return evaluate
+
+
+def _log_gamma(generator, alpha: float, shape, device) -> torch.Tensor:
+    """log of Gamma(alpha, 1) draws, float32: Marsaglia and Tsang's
+    rejection at shape alpha (alpha + 1 below 1, then scaled by
+    U**(1/alpha)), redrawn until every element is accepted (one host read
+    a round)."""
+    a = alpha + 1.0 if alpha < 1.0 else alpha
+    d = a - 1.0 / 3.0
+    c = 1.0 / math.sqrt(9.0 * d)
+    out = torch.zeros(shape, dtype=torch.float32, device=device)
+    done = torch.zeros(shape, dtype=torch.bool, device=device)
+    while True:
+        x = torch.randn(shape, generator=generator, device=device)
+        u = torch.rand(shape, generator=generator, device=device)
+        v = (1.0 + c * x) ** 3
+        log_v = torch.log(v)  # nan where v <= 0, which rejects
+        ok = (v > 0) & (torch.log(u) < 0.5 * x * x + d - d * v + d * log_v)
+        out = torch.where(ok & ~done, math.log(d) + log_v, out)
+        done = done | ok
+        if bool(done.all()):
+            break
+    if alpha < 1.0:
+        u = torch.rand(shape, generator=generator, device=device)
+        out = out + torch.log(u) / alpha
+    return out
+
+
+def dirichlet(generator, alpha: float, shape, device) -> torch.Tensor:
+    """Symmetric Dirichlet(alpha) draws over the last axis of ``shape``
+    (float32): gamma draws normalised per row, in log space so that small
+    ``alpha`` cannot underflow a row to zero."""
+    lg = _log_gamma(generator, alpha, shape, device)
+    return torch.softmax(lg, dim=-1)
+
+
+@torch.no_grad()
+def search_batch(params, bs: BitState, generator, *, evaluator, board_size: int,
+                 num_simulations: int, c_puct: float = 1.4,
+                 dirichlet_alpha: float = 0.3, dirichlet_frac: float = 0.25,
+                 return_stats: bool = False, backup: str = "auto"):
+    """Run MCTS from a batch of root BitStates (batch-trailing, 1-D batch).
+
+    Roots must be non-terminal.  ``generator`` is a ``torch.Generator`` on
+    the states' device.  Returns (visit_probs [B, A], root_q [B]); with
+    ``return_stats`` also ``{"sel_iters", "backup_iters"}``, the lockstep
+    selection and backup walk iterations summed over the simulations (each
+    ends in one host sync; backup_iters is 0 under the amask backup).
+    """
+    if bs.current_player.ndim != 1:
+        raise ValueError("search_batch wants a 1-D env batch")
+    a_dim = board_size * board_size
+    nodes = num_simulations + 1
+    batch = bs.current_player.shape[-1]
+    dev = bs.red.device
+    root_player = bs.current_player.clamp(0, 1)
+    root_legal = bit_legal_mask_flat(bs, root_player, board_size).T  # [B, A]
+    root_logits, root_value = evaluator(params, bs, generator)
+    noise = dirichlet(generator, dirichlet_alpha, (batch, a_dim), dev)
+    root_prior = masked_policy(root_logits, root_legal)
+    root_prior = torch.where(
+        root_legal,
+        (1 - dirichlet_frac) * root_prior + dirichlet_frac * noise,
+        0.0,
+    )
+    root_prior = root_prior / root_prior.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    use_amask = _resolve_backup(backup, nodes)
+    tree = _init_tree(bs, batch, nodes, a_dim, root_value,
+                      torch.where(root_legal, root_prior, -1.0), use_amask)
+    simulate = _make_simulate(
+        params=params, generator=generator, evaluator=evaluator,
+        board_size=board_size, batch=batch, nodes=nodes, a_dim=a_dim,
+        c_puct=c_puct, use_amask=use_amask, dev=dev,
+    )
+    sel_ct = bk_ct = 0
+    for sim in range(num_simulations):
+        s, b = simulate(sim, tree)
+        sel_ct += s
+        bk_ct += b
+
+    # root visit counts, child-side
+    kid = tree.root_child
+    kid_visits = torch.where(kid >= 0, tree.visit.gather(1, kid.clamp_min(0)), 0)
+    kid_visits = torch.where(root_legal, kid_visits, 0)
+    visit_probs = kid_visits.float() / kid_visits.sum(-1, keepdim=True).clamp_min(1).float()
+    root_q = tree.value_sum[:, 0] / tree.visit[:, 0].clamp_min(1).float()
+    if return_stats:
+        return visit_probs, root_q, {"sel_iters": sel_ct, "backup_iters": bk_ct}
+    return visit_probs, root_q
+
+
+def batched_search(params, states, generator, **kw):
+    """Search from canonical tensor states (``ops/state.State``, trailing
+    env batch): packs to BitState and runs :func:`search_batch`."""
+    return search_batch(params, from_state(states), generator, **kw)

@@ -553,17 +553,24 @@ def bit_step_auto_reset(bs: BitState, action, board_size: int):
     return _reset_done(nxt, init), nxt.result != geo.RESULT_OPEN, nxt.result
 
 
+def _packed_wire_lanes(bs: BitState, board_size: int) -> torch.Tensor:
+    """The pre-move packed wire of one step, lane-major: int32 [12, P, B]."""
+    from twixt_for_open_spiel_tpu_torch.ops.observe import (
+        bit_observation_packed_lanes,
+        pack_legal_into_lanes,
+    )
+
+    return pack_legal_into_lanes(
+        bit_observation_packed_lanes(bs, board_size), _mover_legal(bs)
+    )
+
+
 def rollout_loop(seed: int, board_size: int, num_steps: int, bs: BitState,
-                 obs: torch.Tensor | None = None):
+                 obs: torch.Tensor | None = None, emit=_packed_wire_lanes):
     """The lockstep random rollout, one torch step at a time.  Returns
-    (final state, episodes int32 [], results int32 [4]).  With ``obs``
-    (int32 [T, 12, P, B]) it also writes the pre-move packed wire of every
-    step there, lane-major."""
-    if obs is not None:
-        from twixt_for_open_spiel_tpu_torch.ops.observe import (
-            bit_observation_packed_lanes,
-            pack_legal_into_lanes,
-        )
+    (final state, episodes int32 [], results int32 [4]).  With ``obs`` it
+    also writes ``emit(state, board_size)`` of every step's pre-move state
+    to ``obs[step]``: by default the packed wire, int32 [12, P, B]."""
     dev = bs.red.device
     env = torch.arange(bs.current_player.shape[-1], dtype=_I64, device=dev)
     init = bit_reset(board_size, 1, dev)
@@ -572,9 +579,7 @@ def rollout_loop(seed: int, board_size: int, num_steps: int, bs: BitState,
     rs = torch.arange(4, dtype=_I32, device=dev).unsqueeze(1)
     for k in range(num_steps):
         if obs is not None:
-            obs[k] = pack_legal_into_lanes(
-                bit_observation_packed_lanes(bs, board_size), _mover_legal(bs)
-            )
+            obs[k] = emit(bs, board_size)
         actions = sample_bits(bs, board_size, rollout_noise(seed, k, env))
         nxt = step_bits(bs, board_size, actions)
         done = nxt.result != geo.RESULT_OPEN
@@ -592,14 +597,30 @@ def bit_random_rollout(seed: int, board_size: int, num_steps: int, bs: BitState)
     return bs, {"episodes": episodes, "results": results}
 
 
-def bit_rollout_emit_obs(seed: int, board_size: int, num_steps: int, bs: BitState):
-    """The rollout emitting the packed learner wire at every step: the JAX
-    ``bit_rollout_emit_obs(..., packed=True)``.  Returns (final_state,
-    {"episodes"}, obs int32 [T, B, 12*P]), batch-leading as in JAX."""
+def bit_rollout_emit_obs(seed: int, board_size: int, num_steps: int, bs: BitState,
+                         packed: bool = False):
+    """The rollout emitting every step's pre-move observation, batch-leading,
+    as the JAX ``bit_rollout_emit_obs``: the same transition and noise as
+    :func:`bit_random_rollout`.  Returns (final_state, {"episodes"}, obs).
+
+    ``packed=False``: obs is ``bit_observation_nchw`` in bfloat16 (binary
+    planes, so exact), ``[T, B, 12, n, n-2]``.  ``packed=True``: obs is the
+    packed learner wire, int32 ``[T, B, 12*P]``."""
     p, batch = bs.red.shape
+    dev = bs.red.device
+    if packed:
+        obs = torch.empty((num_steps, 12, p, batch), dtype=_I32, device=dev)
+        bs, episodes, _ = rollout_loop(seed, board_size, num_steps, bs, obs)
+        wire = obs.permute(0, 3, 1, 2).reshape(num_steps, batch, 12 * p)
+        return bs, {"episodes": episodes}, wire
+    from twixt_for_open_spiel_tpu_torch.ops.observe import bit_observation_nchw
+
+    n = board_size
     obs = torch.empty(
-        (num_steps, 12, p, batch), dtype=_I32, device=bs.red.device
+        (num_steps, batch, 12, n, n - 2), dtype=torch.bfloat16, device=dev
     )
-    bs, episodes, _ = rollout_loop(seed, board_size, num_steps, bs, obs)
-    wire = obs.permute(0, 3, 1, 2).reshape(num_steps, batch, 12 * p)
-    return bs, {"episodes": episodes}, wire
+    bs, episodes, _ = rollout_loop(
+        seed, n, num_steps, bs, obs,
+        emit=lambda s, size: bit_observation_nchw(s, size, torch.bfloat16),
+    )
+    return bs, {"episodes": episodes}, obs
