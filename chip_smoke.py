@@ -77,8 +77,41 @@ non-zero exit.
       untrained full-width net against the random bot at board 8, batch
       64, 16 simulations: tally, plies and moves a second.
 
-The net, search and arena lines with a time end with the card's name and
-power limit (printed alone first).  The
+  self-play, the learner step and the driver (``models/selfplay.py``,
+  ``train_arena_gate.py``; plain torch on the card, no rollout kernel):
+  16. the deterministic chunk of ``tests/torch_port_cases`` (table net,
+      board 5, greedy, no root noise) with and without the value
+      bootstrap: the obs wire bit-equal, the policy, value and weight
+      targets, the final-state digest and the debug aux equal to
+      ``tests/fixtures/torch_port_selfplay.json``;
+  17. ``loss_fn``, its gradients and three ``train_step``s under each clip
+      in float32 with TF32 off, on seeded parameters converted from flax:
+      the card against the CPU (metrics rtol 1e-5, gradients within 1e-5 of
+      each leaf's largest magnitude, parameters rtol 2e-4 and atol 1e-5)
+      and against the JAX record ``tests/fixtures/torch_port_train.json``
+      (each leaf's norm and projection within 1e-4 of its norm); one step
+      at microbatch 4 against the monolithic step;
+  18. config 5 at full width (``docs/PERF.md``'s board-12 recipe: batch
+      512, chunk 32, 64 simulations, 64 channels x 4 blocks, bf16,
+      ``temp_moves=16``, Dirichlet 0.3 / 0.25): one chunk's seconds,
+      moves/s, seconds a ply, ``search_batch``'s share (CUDA events),
+      frames with weight 1 and peak memory; its invariants (policy rows
+      sum to 1 with no mass off the legal set, weights in {0, 1},
+      |value| <= 1, the wire's legal plane equal to the engine's mask of
+      the states replayed from the chunk's actions); then ``train_step``
+      on its 16,384 frames: the median of 5 after a warm-up beside the
+      bound (3 x the forward's FLOPs over 989 TFLOP/s), the loss, peak
+      memory, and that the parameters moved;
+  19. the driver as a program on the card (board 8, batch 64, chunk 8, 16
+      simulations, 64 x 4, gates at 2 and 3, arena batch 32 with 8
+      simulations), then ``--resume`` to iteration 4: the JSONL record
+      kinds in order, the resume at iteration 4 with the best record
+      restored, ``gate_vs_random``, and the checkpoint loaded onto the
+      card.
+
+The net, search, arena, self-play, train and driver lines with a time end
+with the card's name and power limit (printed alone first).  The total
+time is printed before the two JSON lines.  The
 second-to-last line is a JSON object describing the kernels (K1 and K2
 as entries of their own), each with
 its time, its plain version's time and its bound (the least time the card
@@ -91,15 +124,17 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import os
 import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 
-from twixt_for_open_spiel_tpu_torch.models import arena, convert, mcts
+from twixt_for_open_spiel_tpu_torch.models import arena, convert, mcts, selfplay
 from twixt_for_open_spiel_tpu_torch.models.network import call_net, create_net
 from twixt_for_open_spiel_tpu_torch.ops import _cuda, _sass
 from twixt_for_open_spiel_tpu_torch.ops import bitboard as tbit
@@ -108,7 +143,9 @@ from twixt_for_open_spiel_tpu_torch.ops import fused_tensor_rollout as ftr
 from twixt_for_open_spiel_tpu_torch.ops import geometry as geo
 from twixt_for_open_spiel_tpu_torch.ops import rollout as troll
 from twixt_for_open_spiel_tpu_torch.ops import state as tstate
+from twixt_for_open_spiel_tpu_torch.ops import observe as tobs
 from twixt_for_open_spiel_tpu_torch.ops import store_skeleton as sk
+from twixt_for_open_spiel_tpu_torch.utils import serialization
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -202,6 +239,22 @@ ARENA_ROW = (8, 64, 16)  # board, batch, simulations: the full-width net vs the 
 NET_TOL = {"f32": 1e-4, "bf16": 2.0**-4}
 # the card's dense bfloat16 tensor-core peak (H100 SXM, NVIDIA's data sheet)
 BF16_FLOPS_PER_S = 989e12
+
+# --- self-play, the learner step and the driver (plain torch on the card) --
+SELFPLAY_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_selfplay.json"
+TRAIN_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_train.json"
+# card vs CPU in float32 with TF32 off, and card vs the JAX record's summaries
+TRAIN_TOL = {"metrics_rtol": 1e-5, "grad": 1e-5, "param_rtol": 2e-4, "param_atol": 1e-5,
+             "summary": 1e-4}
+# config 5 (docs/PERF.md:412-415): board, batch, chunk steps, simulations,
+# channels, blocks; bf16; temp_moves 16; Dirichlet alpha 0.3, fraction 0.25
+SELFPLAY_ROW = (12, 512, 32, 64, 64, 4)
+SELFPLAY_TEMP_MOVES = 16
+TRAIN_REPS = 5
+TRAIN_LR = 1e-3  # train_arena_gate's --lr
+# the driver's budget: a short run, then --resume one iteration further
+DRIVER = {"board_size": 8, "batch": 64, "chunk_steps": 8, "simulations": 16, "channels": 64,
+          "blocks": 4, "arena_batch": 32, "arena_sims": 8, "seed": 0}
 
 
 def require(ok: bool, what: str) -> None:
@@ -917,6 +970,238 @@ def arena_path(dev, card: str) -> None:
     no_kernel_launched("the arena path")
 
 
+def selfplay_equal_path(dev) -> None:
+    """Phase 16: the deterministic chunk on the card against the JAX record."""
+    zero_counts()
+    rec = json.loads(SELFPLAY_FIXTURE.read_text())
+    for vb, want in rec["chunks"].items():
+        final, sample, aux = cases.deterministic_chunk(dev, float(vb), debug_trace=True)
+        got = cases.sample_record(final, sample, aux)
+        same = {k: got[k] == want[k] for k in ("obs_sha256", "obs_shape", "policy", "value",
+                                              "weight", "final_digest")}
+        same["aux"] = {k: got["aux"][k] for k in want["aux"]} == want["aux"]
+        print(f"[selfplay equal] n={rec['board_size']} batch={rec['batch']} "
+              f"steps={rec['num_steps']} sims={rec['num_simulations']} table net, greedy, "
+              f"no root noise, value_bootstrap={vb}: {same}; frames with weight 1 "
+              f"{int((sample.weight == 1).sum())} of {sample.weight.numel()}")
+        require(all(same.values()), f"the deterministic chunk vs JAX at value_bootstrap={vb}")
+    no_kernel_launched("the self-play chunk")
+
+
+def leaf_err(got: dict, want: dict) -> float:
+    """Largest |got - want| over each leaf's largest |want|."""
+    return max(float((got[k].float().cpu() - want[k].float().cpu()).abs().max())
+               / max(float(want[k].abs().max()), 1e-30) for k in want)
+
+
+def param_close(got: dict, want: dict) -> bool:
+    """Every parameter within rtol 2e-4 and atol 1e-5 (``TRAIN_TOL``)."""
+    return all(torch.allclose(got[k].float().cpu(), want[k].float().cpu(),
+                              rtol=TRAIN_TOL["param_rtol"], atol=TRAIN_TOL["param_atol"])
+               for k in want)
+
+
+def train_equal_path(dev) -> None:
+    """Phase 17: the float32 loss, gradients and train steps on the card
+    against the CPU and the JAX record; microbatch 4 against monolithic."""
+    zero_counts()
+    rec = json.loads(TRAIN_FIXTURE.read_text())
+    n, ch, blocks = rec["board_size"], rec["channels"], rec["blocks"]
+    tree = convert.params_to_flax(cases.random_state_dict(n, ch, blocks, rec["param_seed"]))
+    card_sample = cases.deterministic_chunk(dev, rec["value_bootstrap"])[1]
+    samples = {"card": card_sample,
+               "cpu": selfplay.Sample(*(x.cpu() for x in card_sample))}
+
+    def net_on(where):
+        net = create_net(n, ch, blocks, dtype=torch.float32,
+                         device=dev if where == "card" else "cpu")
+        return convert.load_flax_params(net, tree)
+
+    with no_tf32():
+        grads, metrics = {}, {}
+        for where in ("card", "cpu"):
+            net = net_on(where)
+            loss, metrics[where] = selfplay.loss_fn(net, call_net, samples[where])
+            loss.backward()
+            grads[where] = {k: p.grad for k, p in net.named_parameters()}
+        m_err = max(abs(float(metrics["card"][k]) / float(metrics["cpu"][k]) - 1)
+                    for k in rec["metrics"])
+        m_jax = max(abs(float(metrics["card"][k]) / rec["metrics"][k] - 1) for k in rec["metrics"])
+        g_err = leaf_err(grads["card"], grads["cpu"])
+        g_jax = cases.summary_err(cases.summarize(grads["card"]), rec["grads"])
+        print(f"[train equal] n={n} {ch} channels {blocks} block f32 (TF32 off), "
+              f"value_bootstrap={rec['value_bootstrap']}: loss metrics card/CPU - 1 {m_err}, "
+              f"card/JAX - 1 {m_jax} (tolerance {TRAIN_TOL['metrics_rtol']}); gradients card "
+              f"vs CPU {g_err} of each leaf's max (tolerance {TRAIN_TOL['grad']}), vs the JAX "
+              f"summaries {g_jax} of each leaf's norm (tolerance {TRAIN_TOL['summary']})")
+        require(max(m_err, m_jax) <= TRAIN_TOL["metrics_rtol"], "the loss metrics")
+        require(g_err <= TRAIN_TOL["grad"] and g_jax <= TRAIN_TOL["summary"], "the gradients")
+
+        for clip, clip_norm in rec["clips"].items():
+            nets = {w: net_on(w) for w in ("card", "cpu")}
+            opts = {w: selfplay.make_optimizer(nets[w].parameters(), rec["lr"],
+                                               clip_norm=clip_norm) for w in nets}
+            for k, want in enumerate(rec["steps"][clip]):
+                for w in nets:
+                    selfplay.train_step(nets[w], opts[w], samples[w])
+                card, cpu = nets["card"].state_dict(), nets["cpu"].state_dict()
+                close = param_close(card, cpu)
+                s_err = cases.summary_err(cases.summarize(card), want["params"])
+                print(f"[train equal] clip {clip} ({clip_norm}) step {k + 1}: parameters card "
+                      f"vs CPU {'within' if close else 'OUTSIDE'} rtol "
+                      f"{TRAIN_TOL['param_rtol']} atol {TRAIN_TOL['param_atol']} (max |diff| "
+                      f"{max(float((card[q].cpu() - cpu[q]).abs().max()) for q in cpu)}), vs "
+                      f"the JAX summaries {s_err}")
+                require(close and s_err <= TRAIN_TOL["summary"], f"train step {k + 1} ({clip})")
+
+        nets = {mb: net_on("card") for mb in (1, 4)}
+        for mb, net in nets.items():
+            selfplay.train_step(net, selfplay.make_optimizer(net.parameters(), rec["lr"]),
+                                card_sample, microbatch=mb)
+        close = param_close(nets[4].state_dict(), nets[1].state_dict())
+        print(f"[train equal] microbatch 4 vs monolithic on the card: parameters "
+              f"{'within' if close else 'OUTSIDE'} rtol {TRAIN_TOL['param_rtol']} atol "
+              f"{TRAIN_TOL['param_atol']}")
+        require(close, "the microbatched step vs the monolithic step")
+    no_kernel_launched("the train step")
+
+
+def selfplay_rate_path(dev, card: str) -> None:
+    """Phase 18: one config-5 chunk and train steps on it, at full width."""
+    zero_counts()
+    n, b, steps, sims, ch, blocks = SELFPLAY_ROW
+    net = create_net(n, ch, blocks, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    kw = dict(board_size=n, num_simulations=sims, temp_moves=SELFPLAY_TEMP_MOVES,
+              dirichlet_alpha=0.3, dirichlet_frac=0.25)
+    selfplay.selfplay_chunk(net, tbit.bit_reset(n, b, dev), gen, num_steps=1, **kw)  # warm-up
+
+    search_events = []
+    real_search = mcts.search_batch
+
+    def timed_search(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_search(*args, **kwargs)
+        stop.record()
+        search_events.append((start, stop))
+        return out
+
+    roots = tbit.bit_reset(n, b, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mcts.search_batch = timed_search
+    try:
+        t0 = time.perf_counter()
+        final, sample, aux = selfplay.selfplay_chunk(net, roots, gen, num_steps=steps,
+                                                     debug_trace=True, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        mcts.search_batch = real_search
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    search_s = sum(a.elapsed_time(z) for a, z in search_events) / 1e3
+    require(len(search_events) == steps, "one search a ply")
+
+    # invariants, against the states replayed from the chunk's actions
+    states, bs = [], roots
+    for a in aux["actions"]:
+        states.append(bs)
+        bs = tbit.bit_step_auto_reset(bs, a, n)[0]
+    require(tbit.state_digest(bs) == tbit.state_digest(final), "the replay ends at the final state")
+    pk = sample.obs.reshape(steps, b, 12, n + 2 * geo.PAD)
+    wire_legal = tobs.unpack_legal_words_flat(tobs.legal_words_from_obs(pk), n)
+    for k, s in enumerate(states):
+        legal = tbit.bit_legal_mask_flat(s, s.current_player.clamp(0, 1), n).T
+        require(torch.equal(wire_legal[k], legal), f"the wire's legal plane at step {k}")
+        require(bool((sample.policy[k][~legal] == 0).all()), f"no policy mass off the legal set ({k})")
+    row_err = float((sample.policy.sum(-1) - 1).abs().max())
+    require(row_err <= 1e-5, "every policy row sums to 1")
+    require(bool(((sample.weight == 0) | (sample.weight == 1)).all()), "weights in {0, 1}")
+    require(bool((sample.value.abs() <= 1).all()), "|value| <= 1")
+    finished = int((sample.weight == 1).sum())
+    print(f"[selfplay rate] config 5: n={n} batch={b} chunk={steps} sims={sims} net {ch}x{blocks} "
+          f"bf16, temp_moves={SELFPLAY_TEMP_MOVES}, Dirichlet 0.3/0.25: {secs} s -> "
+          f"{b * steps / secs} moves/s, {secs / steps} s a ply; search_batch {search_s / secs} "
+          f"of the time (CUDA events); frames with weight 1 {finished} of {sample.weight.numel()};"
+          f" peak memory {peak} MiB; invariants hold (policy rows sum to 1 within {row_err}) "
+          f"[{card}]")
+
+    opt = selfplay.make_optimizer(net.parameters(), TRAIN_LR)
+    before = [p.detach().clone() for p in net.parameters()]
+    selfplay.train_step(net, opt, sample)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    ms = timed_ms(lambda: losses.append(selfplay.train_step(net, opt, sample)["loss"]), TRAIN_REPS)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    med = statistics.median(ms)
+    frames = steps * b
+    flops = 3 * net_flops(net, frames)
+    bound_ms = flops / BF16_FLOPS_PER_S * 1e3
+    loss = float(losses[-1])
+    moved = any(not torch.equal(a, p) for a, p in zip(before, net.parameters()))
+    print(f"[train rate] train_step on the chunk's {frames} frames, net {ch}x{blocks} bf16, "
+          f"AdamW lr {TRAIN_LR}: median {med} ms of {TRAIN_REPS} ({min(ms)}-{max(ms)}) after a "
+          f"warm-up; bound {bound_ms} ms (3 x {flops / 3e12} TFLOP forward over "
+          f"{BF16_FLOPS_PER_S / 1e12} TFLOP/s, operations), share {bound_ms / med}; loss {loss}; "
+          f"peak memory {peak} MiB; parameters moved {moved} [{card}]")
+    require(torch.isfinite(torch.tensor(loss)).item() and moved, "a finite loss, moved parameters")
+    no_kernel_launched("the config-5 chunk and train step")
+
+
+def driver_path(dev, card: str) -> None:
+    """Phase 19: the driver as a program on the card, then --resume."""
+    expect_first = ["train", "gate_vs_init", "train", "gate_vs_init", "best",
+                    "gate_vs_random", "done"]
+    # iteration 4 trains without a record: the script logs 1-3 and every 10th
+    expect_resume = ["resume", "gate_vs_init", "best", "gate_vs_random", "done"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, log = os.path.join(tmp, "ckpt"), os.path.join(tmp, "gate.jsonl")
+        records = []
+        for extra, expect in ((["--iterations=3", "--gates=2,3"], expect_first),
+                              (["--iterations=4", "--gates=2,3,4", "--resume"], expect_resume)):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "twixt_for_open_spiel_tpu_torch.train_arena_gate",
+                 *(f"--{k}={v}" for k, v in DRIVER.items()), *extra, f"--checkpoint_dir={ckpt}", f"--log={log}"],
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            secs = time.perf_counter() - t0
+            require(proc.returncode == 0, f"the driver exits 0: {proc.stderr[-2000:]}")
+            require("device=cuda" in proc.stderr, "the driver ran on the card")
+            with open(log) as f:
+                recs = [json.loads(line) for line in f][len(records):]
+            records += recs
+            kinds = [r["kind"] for i, r in enumerate(recs)
+                     if i == 0 or r["kind"] != recs[i - 1]["kind"]]  # runs of train as one
+            print(f"[driver] {' '.join(extra)}: {secs} s, records "
+                  f"{[r['kind'] for r in recs]} [{card}]")
+            for r in recs:
+                print(f"[driver]   {json.dumps(r)}")
+            require(kinds == expect, f"the record kinds in order: {kinds}")
+        resume = next(r for r in records if r["kind"] == "resume")
+        with open(os.path.join(ckpt, "best_meta.json")) as f:
+            meta_after = json.load(f)
+        best_first = next(r for r in records if r["kind"] == "best")
+        require(resume["from_iteration"] == 3, "resume from iteration 3")
+        require([r["iteration"] for r in records if r["kind"] == "gate_vs_init"] == [2, 3, 4],
+                "the resumed run starts at iteration 4 (its gate)")
+        require((resume["best_iteration"], resume["best_score"]) ==
+                (best_first["iteration"], best_first["a_score"]), "the best record restored")
+        params, opt_state, it = serialization.restore_training(ckpt, dev)
+        on_card = all(t.is_cuda for t in params.values()) and all(
+            t.is_cuda for s in opt_state["state"].values() for k, t in s.items()
+            if k != "step")
+        net = create_net(DRIVER["board_size"], DRIVER["channels"], DRIVER["blocks"], device=dev)
+        net.load_state_dict(params)
+        opt = selfplay.make_optimizer(net.parameters())
+        opt.load_state_dict(opt_state)
+        print(f"[driver] checkpoint at iteration {it} loaded onto the card: {on_card}; "
+              f"best_meta.json {meta_after}")
+        require(it == 4 and on_card, "the checkpoint tensors load onto the card")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -931,6 +1216,7 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
+    t_start = time.perf_counter()
     build_all()
     sass = sass_counts()
     bit = bitboard_path(dev, sass)
@@ -939,7 +1225,12 @@ def main() -> int:
     net_ms = net_path(dev, card)
     search_path(dev, card, net_ms)
     arena_path(dev, card)
+    selfplay_equal_path(dev)
+    train_equal_path(dev)
+    selfplay_rate_path(dev, card)
+    driver_path(dev, card)
 
+    print(f"[total] {time.perf_counter() - t_start} s from the build to here")
     print(json.dumps({"kernels": [*bit["reports"], tensor, store]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -83,8 +83,9 @@ def test_port_source_imports_no_jax():
     # and the test inputs that script shares
     files = sorted(PORT.rglob("*.py")) + [
         PORT.parent / "chip_smoke.py", PORT.parent / "tests" / "torch_port_cases.py"]
-    assert len(files) >= 18
-    assert {"mcts.py", "network.py", "convert.py", "arena.py"} <= {f.name for f in files}
+    assert len(files) >= 22
+    assert {"mcts.py", "network.py", "convert.py", "arena.py", "selfplay.py",
+            "serialization.py", "train_arena_gate.py"} <= {f.name for f in files}
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -98,10 +99,17 @@ def test_importing_port_loads_no_jax():
     # importing them loads and builds no kernel
     modules = sorted(
         f"twixt_for_open_spiel_tpu_torch.{sub}." + path.stem
-        for sub in ("ops", "models")
+        for sub in ("ops", "models", "utils")
         for path in (PORT / sub).glob("*.py") if path.stem != "__init__"
-    ) + ["twixt_for_open_spiel_tpu_torch.models", "tests.torch_port_cases"]
-    assert len(modules) >= 16
+    ) + sorted(
+        "twixt_for_open_spiel_tpu_torch." + path.stem
+        for path in PORT.glob("*.py") if path.stem != "__init__"
+    ) + ["twixt_for_open_spiel_tpu_torch.models", "twixt_for_open_spiel_tpu_torch.utils",
+         "tests.torch_port_cases"]
+    assert len(modules) >= 22
+    assert {"twixt_for_open_spiel_tpu_torch.models.selfplay",
+            "twixt_for_open_spiel_tpu_torch.utils.serialization",
+            "twixt_for_open_spiel_tpu_torch.train_arena_gate"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "import twixt_for_open_spiel_tpu_torch as tw\n"

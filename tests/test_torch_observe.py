@@ -111,6 +111,29 @@ def test_observation_matches_jax(n):
     )
 
 
+@pytest.mark.parametrize("n", [5, 8, 12, 24])
+def test_packed_observation_and_lanes_decode_match_jax(n):
+    """``bit_observation_packed`` ([B, 12, P]) and the lane-major decode
+    ``unpack_observation_lanes_nchw`` ([..., 12, P, B] -> [..., B, 12, n,
+    n-2]), one and two leading steps, bit-equal to JAX's."""
+    jbs, tbs = mid_game_states(n, batch=16)
+    got = tobs.bit_observation_packed(tbs, n)
+    assert got.dtype == torch.int32 and got.shape == (16, 12, n + 6)
+    np.testing.assert_array_equal(as_i64(got), as_i64(jobs.bit_observation_packed(jbs, n)))
+    lanes_j = jobs.bit_observation_packed_lanes(jbs, n)
+    lanes_t = tobs.bit_observation_packed_lanes(tbs, n)
+    for dtype, jdtype in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        for lead_t, lead_j in ((lanes_t, lanes_j),
+                               (torch.stack([lanes_t, lanes_t.flip(-1)]),
+                                jnp.stack([lanes_j, lanes_j[..., ::-1]]))):
+            dec = tobs.unpack_observation_lanes_nchw(lead_t, n, dtype)
+            want = np.asarray(jobs.unpack_observation_lanes_nchw(lead_j, n, jdtype))
+            assert dec.dtype == dtype
+            np.testing.assert_array_equal(dec.float().numpy(), want.astype(np.float32))
+    # and the packed decode is the network-layout observation
+    assert torch.equal(tobs.unpack_observation_nchw(got, n), tobs.bit_observation_nchw(tbs, n))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n", [5, 8, 12, 24])
 def test_bit_observation_matches_jax(n, dtype):

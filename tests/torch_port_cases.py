@@ -2,17 +2,21 @@
 
 Seeded net parameters and observations for the net pins; the torch twins
 of the evaluators in ``tests/test_mcts_exact.py`` (the same float32
-operations, so both sides compute the same bits); and a table net for the
-deterministic arena.  ``chip_smoke.py`` uses them on the card, where jax is
+operations, so both sides compute the same bits); a table net for the
+deterministic arena; and the deterministic self-play chunk with its JSON
+record.  ``chip_smoke.py`` uses them on the card, where jax is
 not installed, so this module imports torch, numpy and the port only.
 """
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import torch
 
 from twixt_for_open_spiel_tpu_torch.models.network import AZNet
+from twixt_for_open_spiel_tpu_torch.models.selfplay import selfplay_chunk
 from twixt_for_open_spiel_tpu_torch.ops import bitboard, state, step
 
 
@@ -113,3 +117,86 @@ def scenario_roots(scenarios, board_size: int, device):
             s = step.step(s, board_size, a)
         envs.append(s)
     return bitboard.from_state(state.State(*[torch.stack(xs, -1) for xs in zip(*envs)]))
+
+
+# The deterministic self-play chunk of the port's pins and ``chip_smoke.py``:
+# the table net below, greedy plies (``temp_moves=0``) and no root noise,
+# from roots part-way through random games (the bitboard rollout, which is
+# bit-identical to JAX's), so that episodes end inside the chunk.
+CHUNK = {"board_size": 5, "batch": 8, "num_steps": 12, "num_simulations": 8,
+         "rollout_seed": 3, "rollout_steps": 9}
+
+
+def chunk_roots(device):
+    n = CHUNK["board_size"]
+    return bitboard.bit_random_rollout(
+        CHUNK["rollout_seed"], n, CHUNK["rollout_steps"],
+        bitboard.bit_reset(n, CHUNK["batch"], device))[0]
+
+
+def chunk_table_net(params, obs):
+    """``arena_table_net`` with its value over 8, not 7: XLA on the CPU
+    turns a division by the constant 7 into a product with its reciprocal,
+    a unit in the last place off torch's quotient, and the self-play value
+    targets carry the search's root values.  Eighths are exact on both
+    sides."""
+    table, offset = params
+    count = obs.float().sum(dim=(1, 2, 3))
+    value = (torch.remainder(count * 7.0 + offset, 11.0) - 5.0) / 8.0
+    return table.expand(obs.shape[0], table.shape[0]), value
+
+
+def deterministic_chunk(device, value_bootstrap: float = 0.0, debug_trace: bool = False):
+    """The chunk on ``device``: (final BitState, Sample[, aux])."""
+    n = CHUNK["board_size"]
+    return selfplay_chunk(
+        arena_table_params(n * n, 0, device), chunk_roots(device),
+        torch.Generator(device=device).manual_seed(0), net_apply=chunk_table_net,
+        board_size=n, num_steps=CHUNK["num_steps"],
+        num_simulations=CHUNK["num_simulations"], temp_moves=0, dirichlet_frac=0.0,
+        value_bootstrap=value_bootstrap, debug_trace=debug_trace)
+
+
+def sample_record(final, sample, aux=None) -> dict:
+    """A chunk's outputs as JSON: the obs wire's sha256 (as u32 words), the
+    policy, value and weight targets as lists, the final-state digest and
+    the debug aux."""
+    words = sample.obs.cpu().numpy().view(np.uint32)
+    rec = {
+        "obs_sha256": hashlib.sha256(words.tobytes()).hexdigest(),
+        "obs_shape": list(words.shape),
+        "policy": sample.policy.cpu().tolist(),
+        "value": sample.value.cpu().tolist(),
+        "weight": sample.weight.cpu().tolist(),
+        "final_digest": bitboard.state_digest(final),
+    }
+    if aux is not None:
+        rec["aux"] = {k: v.cpu().tolist() for k, v in aux.items()}
+    return rec
+
+
+# The learner pins: a seeded float32 net at board 5 trained on the
+# deterministic chunk with the bootstrap (weights 0.5 and 1)
+TRAIN = {"channels": 8, "blocks": 1, "param_seed": 4, "value_bootstrap": 0.5, "lr": 1e-3,
+         "steps": 3, "clips": {"below": 1e3, "above": 0.05}}
+
+
+def summarize(state: dict) -> dict:
+    """Each tensor of a ``state_dict`` (torch layout) as [its L2 norm, its
+    dot product with a fixed normal vector seeded by the name], float64."""
+    out = {}
+    for name, x in state.items():
+        a = np.asarray(x.detach().cpu().double() if torch.is_tensor(x) else x, np.float64).ravel()
+        r = np.random.default_rng(int.from_bytes(hashlib.sha256(name.encode()).digest()[:4],
+                                                 "little")).standard_normal(a.size)
+        out[name] = [float(np.linalg.norm(a)), float(a @ r)]
+    return out
+
+
+def summary_err(got: dict, want: dict) -> float:
+    """Largest difference of two :func:`summarize` results, over each
+    tensor's norm (at least 1e-12)."""
+    if set(got) != set(want):
+        raise KeyError(sorted(set(got) ^ set(want)))
+    return max(max(abs(g - w) for g, w in zip(got[k], want[k])) / max(want[k][0], 1e-12)
+               for k in want)

@@ -23,6 +23,10 @@ module's counterpart has the same name:
                               (``csrc/fused_tensor_rollout.cu``)
   ops/store_skeleton.py       the store-stream probe (``csrc/store_skeleton.cu``)
   ops/_cuda.py                builds the CUDA sources with nvcc at first use
+  models/                     the net, the PUCT search, the arena, self-play
+                              and the learner step (plain torch)
+  utils/serialization.py      training checkpoints
+  train_arena_gate.py         the training driver with its arena gates
 
 Each kernel's module holds its plain torch version: CPU tensors run it, CUDA
 tensors launch the kernel or raise.  Entry points put their tensors on the

@@ -5,22 +5,27 @@
                ``call_net`` (the ``net_apply`` of a torch net)
   convert.py   flax parameters <-> the port's ``state_dict``:
                ``params_from_flax``, ``params_to_flax``,
-               ``load_flax_params``
+               ``load_flax_params``; optax's Adam state <-> AdamW's:
+               ``opt_state_from_optax``, ``opt_state_to_optax``
   mcts.py      the batched PUCT search on the bitboard engine:
                ``search_batch``, ``batched_search``, ``net_evaluator``,
                ``rollout_evaluator`` with its seed-level ``one_rollout``,
                ``dirichlet``
   arena.py     ``arena_match``: lockstep games between two nets, or a net
                and the random bot
+  selfplay.py  ``Sample``, ``selfplay_chunk`` (PUCT), ``policy_ce``,
+               ``loss_fn``, ``accumulate_grads``, ``make_optimizer``,
+               ``train_step``
 
-Gumbel search, tree reuse, self-play and training are not ported yet
-(``ROADMAP.md`` Queue 1).  The modules import torch and numpy only, and
+Gumbel search and tree reuse are not ported yet (``ROADMAP.md`` Queue 1).  The modules import torch and numpy only, and
 their entry points put tensors on the card unless given ``device="cpu"``.
 """
 
 from twixt_for_open_spiel_tpu_torch.models.arena import arena_match
 from twixt_for_open_spiel_tpu_torch.models.convert import (
     load_flax_params,
+    opt_state_from_optax,
+    opt_state_to_optax,
     params_from_flax,
     params_to_flax,
 )
@@ -38,20 +43,38 @@ from twixt_for_open_spiel_tpu_torch.models.network import (
     init_params,
     masked_policy,
 )
+from twixt_for_open_spiel_tpu_torch.models.selfplay import (
+    Sample,
+    accumulate_grads,
+    loss_fn,
+    make_optimizer,
+    policy_ce,
+    selfplay_chunk,
+    train_step,
+)
 
 __all__ = [
     "AZNet",
+    "Sample",
+    "accumulate_grads",
     "arena_match",
     "batched_search",
     "call_net",
     "create_net",
     "init_params",
     "load_flax_params",
+    "loss_fn",
+    "make_optimizer",
     "masked_policy",
     "net_evaluator",
     "one_rollout",
+    "opt_state_from_optax",
+    "opt_state_to_optax",
     "params_from_flax",
     "params_to_flax",
+    "policy_ce",
     "rollout_evaluator",
     "search_batch",
+    "selfplay_chunk",
+    "train_step",
 ]

@@ -10,6 +10,10 @@ check the leaf set both ways and fail on any leaf missing or extra.
 
 Only numpy crosses the boundary (a JAX array converts with ``np.asarray``),
 so this module imports neither jax nor flax.
+
+The optimizer state crosses too: optax's Adam moments (``count``, ``mu``,
+``nu`` of ``ScaleByAdamState``) map to torch AdamW's ``step``, ``exp_avg``
+and ``exp_avg_sq``, so a JAX training state continues in the port.
 """
 
 from __future__ import annotations
@@ -125,3 +129,83 @@ def load_flax_params(net, tree):
     leaf missing, extra or of the wrong shape.  Returns ``net``."""
     net.load_state_dict(params_from_flax(tree), strict=True)
     return net
+
+
+# --- optimizer state: optax's Adam moments <-> torch's AdamW state ---------
+
+def _is_adam(node) -> bool:
+    return {"count", "mu", "nu"} <= set(getattr(node, "_fields", ()))
+
+
+def _adam_node(tree):
+    """The first node of an optax state (nested tuples and namedtuples) with
+    ``count``, ``mu`` and ``nu`` fields: ``ScaleByAdamState``."""
+    if _is_adam(tree):
+        return tree
+    if isinstance(tree, (tuple, list)):
+        for node in tree:
+            found = _adam_node(node)
+            if found is not None:
+                return found
+    return None
+
+
+def _param_ids(optimizer, net) -> list:
+    """``(optimizer state id, parameter name)`` for every parameter of
+    ``net``, which ``optimizer`` must hold in ``net.parameters()`` order."""
+    ids = [i for group in optimizer.state_dict()["param_groups"] for i in group["params"]]
+    names = [name for name, _ in net.named_parameters()]
+    if len(ids) != len(names):
+        raise ValueError(f"the optimizer holds {len(ids)} tensors, the net {len(names)}")
+    return list(zip(ids, names))
+
+
+def opt_state_from_optax(opt_state, optimizer, net) -> dict:
+    """The optax state of ``chain(clip_by_global_norm, adamw)`` (leaves
+    numpy-convertible) as a ``state_dict`` for ``optimizer``, a torch AdamW
+    over ``net.parameters()``: ``count`` -> ``step``, ``mu`` ->
+    ``exp_avg``, ``nu`` -> ``exp_avg_sq``, each moment carried across as
+    :func:`params_from_flax` carries the parameters.  Load it with
+    ``optimizer.load_state_dict``; the hyperparameters stay the
+    optimizer's."""
+    adam = _adam_node(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optax state")
+    mu, nu = params_from_flax(adam.mu), params_from_flax(adam.nu)
+    step = float(np.asarray(adam.count))
+    state = {
+        i: {"step": torch.tensor(step), "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+        for i, name in _param_ids(optimizer, net)
+    }
+    return {"state": state, "param_groups": optimizer.state_dict()["param_groups"]}
+
+
+def opt_state_to_optax(optimizer, net, like):
+    """The inverse of :func:`opt_state_from_optax`: ``like`` (an optax
+    state of the same chain, e.g. ``opt.init(params)``) with its Adam node's
+    ``count``, ``mu`` and ``nu`` taken from ``optimizer`` (numpy leaves).
+    A parameter the optimizer has not stepped yet has zero moments."""
+    state = optimizer.state_dict()["state"]
+    mu, nu, steps = {}, {}, set()
+    params = dict(net.named_parameters())
+    for i, name in _param_ids(optimizer, net):
+        s = state.get(i)
+        zeros = torch.zeros_like(params[name], device="cpu")
+        mu[name] = zeros if s is None else s["exp_avg"]
+        nu[name] = zeros if s is None else s["exp_avg_sq"]
+        steps.add(0 if s is None else int(s["step"]))
+    if len(steps) != 1:
+        raise ValueError(f"the parameters were stepped unequally: {sorted(steps)}")
+    count = np.asarray(steps.pop(), np.int32)
+
+    def rebuild(node):
+        if _is_adam(node):
+            return node._replace(count=count, mu=params_to_flax(mu), nu=params_to_flax(nu))
+        if isinstance(node, tuple):
+            items = [rebuild(x) for x in node]
+            return type(node)(*items) if hasattr(node, "_fields") else tuple(items)
+        return node
+
+    if _adam_node(like) is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optax state")
+    return rebuild(like)

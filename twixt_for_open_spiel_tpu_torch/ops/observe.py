@@ -100,6 +100,15 @@ def bit_observation_packed_lanes(bs, board_size: int) -> torch.Tensor:
     return torch.stack(packed)
 
 
+def bit_observation_packed(bs, board_size: int) -> torch.Tensor:
+    """Observation as packed column words, batch-leading: int32 [B, 12, P]
+    (1-D env batch).  Decode with :func:`unpack_observation_nchw`."""
+    stack = bit_observation_packed_lanes(bs, board_size)
+    if stack.ndim != 3:
+        raise ValueError("bit_observation_packed wants a 1-D env batch")
+    return stack.permute(2, 0, 1)
+
+
 # Every packed word's live bits sit at y in [PAD, PAD+n), leaving the low
 # PAD=3 bits free: the mover's legal word for a column is split into 3-bit
 # chunks carried by planes 0..7 of the same column (8 x 3 = 24 bits >= n).
@@ -165,6 +174,14 @@ def unpack_observation_nchw(pk: torch.Tensor, board_size: int,
     blue_obs = (words_b.unsqueeze(3) >> shifts_b) & 1  # [B, 6, n, n-2]
     out = torch.cat([red_obs, blue_obs], dim=1).to(dtype)
     return out.reshape(lead + out.shape[1:])
+
+
+def unpack_observation_lanes_nchw(pk: torch.Tensor, board_size: int,
+                                  dtype=torch.float32) -> torch.Tensor:
+    """Decode lane-major packed planes ([..., 12, P, B]) to the network
+    layout [..., B, 12, n, n-2]: one transpose, then
+    :func:`unpack_observation_nchw`."""
+    return unpack_observation_nchw(pk.movedim(-1, -3), board_size, dtype)
 
 
 def unpack_legal_words_flat(words: torch.Tensor, board_size: int) -> torch.Tensor:

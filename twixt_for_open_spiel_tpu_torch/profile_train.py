@@ -1,0 +1,116 @@
+"""Where a full-width learner step spends its time, on one CUDA card.
+
+    python3 -m twixt_for_open_spiel_tpu_torch.profile_train
+
+One ``train_step`` at ``chip_smoke.py``'s train row (config 5: board 12,
+the 16,384 frames of a 512-env, 32-step chunk, the 64-channel 4-block bf16
+net, AdamW) under ``torch.profiler`` with CPU and CUDA activities, after a
+warm-up step and one step timed without the profiler.  The chunk comes
+from ``selfplay_chunk`` at 2 simulations: the step's shapes and work do
+not depend on the targets' values.
+
+Prints the card's name and power limit; the step's wall time without and
+with the profiler; the device's busy time (the union of kernel intervals)
+and idle share; the device time and launches of each kernel class
+(LayerNorm forward and backward, convolutions forward and backward, matrix
+products, dtype casts and copies, the optimizer's fused loops, the rest);
+and the fifteen kernels with the most device time.  Exits non-zero without
+a CUDA device.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from twixt_for_open_spiel_tpu_torch.models.network import create_net
+from twixt_for_open_spiel_tpu_torch.models.selfplay import (
+    make_optimizer,
+    selfplay_chunk,
+    train_step,
+)
+from twixt_for_open_spiel_tpu_torch.ops import bitboard as tbit
+from twixt_for_open_spiel_tpu_torch.profile_search import _busy_ms
+
+ROW = (12, 512, 32, 64, 4)  # board, batch, chunk steps, channels, blocks
+
+# kernel classes by name, the first match wins
+CLASSES = (
+    ("layer_norm backward", ("layer_norm_grad", "GammaBeta", "LayerNormBackward",
+                             "layer_norm_backward")),
+    ("layer_norm forward", ("layer_norm",)),
+    ("conv backward", ("dgrad", "wgrad")),
+    ("conv forward", ("fprop", "conv")),
+    ("matmul", ("gemm", "gemv", "cutlass", "sm90_xmma")),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("cast and copy", ("copy", "cast")),
+)
+
+
+def kernel_class(name: str) -> str:
+    low = name.lower()
+    for label, keys in CLASSES:
+        if any(k.lower() in low for k in keys):
+            return label
+    return "other"
+
+
+def profile_train(dev) -> None:
+    n, b, steps, ch, blocks = ROW
+    net = create_net(n, ch, blocks, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _, sample = selfplay_chunk(net, tbit.bit_reset(n, b, dev), gen, board_size=n,
+                               num_steps=steps, num_simulations=2, temp_moves=16)
+    opt = make_optimizer(net.parameters(), 1e-3)
+
+    def step():
+        train_step(net, opt, sample)
+        torch.cuda.synchronize()
+
+    step()  # warm-up
+    t0 = time.perf_counter()
+    step()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"
+               and not getattr(e, "is_user_annotation", False)]
+    busy = _busy_ms(kernels)
+    print(f"[profile] train_step n={n} frames={steps * b} net {ch}x{blocks} bf16: wall "
+          f"{plain_ms} ms unprofiled, {prof_ms} ms profiled; device busy {busy} ms (union of "
+          f"kernel intervals): idle share {1 - busy / prof_ms} of the profiled step, "
+          f"{1 - busy / plain_ms} of the unprofiled one; {len(kernels)} device activities")
+    by_class, by_name = {}, {}
+    for k in kernels:
+        us = k.time_range.elapsed_us()
+        for table, key in ((by_class, kernel_class(k.name)), (by_name, k.name)):
+            total, count = table.get(key, (0.0, 0))
+            table[key] = (total + us, count + 1)
+    for label, (us, count) in sorted(by_class.items(), key=lambda kv: -kv[1][0]):
+        print(f"[profile] class {label}: device {us / 1e3} ms, launches {count}")
+    for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+        print(f"[profile] kernel {name[:100]}: device {us / 1e3} ms, launches {count}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_train: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(card)
+    profile_train(torch.device("cuda", 0))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
