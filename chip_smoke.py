@@ -109,6 +109,38 @@ non-zero exit.
       restored, ``gate_vs_random``, and the checkpoint loaded onto the
       card.
 
+  the Gumbel search and tree reuse with their arms (``models/mcts.py``,
+  ``arena.py``, ``selfplay.py``; plain torch on the card, no rollout kernel):
+  20. ``gumbel_search_batch`` on ``tests/test_gumbel_exact.py``'s cases with
+      its numpy-seeded Gumbels, both backups and both node-state gathers:
+      the actions equal, the improved policy within 1e-6 and ``root_q``
+      within 1e-5 of ``tests/fixtures/torch_port_gumbel.json``; and
+      ``search_batch_reuse`` along ``tests/test_reuse_exact.py``'s move
+      sequences (the tight cap included): root visits, ``reused_envs`` and
+      ``inherited_visits`` equal ``tests/fixtures/torch_port_reuse.json``
+      at every move;
+  21. the deterministic ``puct_reuse`` and zero-Gumbel ``gumbel`` chunks
+      against ``tests/fixtures/torch_port_selfplay_arms.json`` (the Gumbel
+      improved-policy targets within 1e-6, the rest equal);
+  22. at config-5 width (board 12, B=512, 64 simulations, the 64x4 bf16
+      net), three rounds in turns: ``search_batch``,
+      ``gumbel_search_batch`` (max_considered 16) and ``search_batch_reuse``
+      after a played greedy ply (129 slots: the per-element gather, the
+      amask backup) with ``reused_envs`` and ``inherited_visits``; the
+      median ms a search and a simulation by CUDA events, peak memory;
+  23. one config-5 chunk of each arm, cut from 32 to 16 plies: moves/s, s
+      a ply, the search's share (CUDA events), peak memory, and the
+      invariants against the states replayed from the chunk's actions;
+  24. at the arena row's shape (board 8, B=64, the 128x6 net):
+      ``arena_match(search="gumbel")`` against the random bot and
+      ``arena_match(reuse_a=True)`` at 16 simulations, and
+      ``arena_match_asym`` with Gumbel at 8 (cut from 16) against PUCT at
+      16; every move checked against its state's legal mask, the tallies;
+  25. (run beside phase 19, whose host loops leave the card idle) the
+      driver as two more programs at phase 19's cut (three iterations,
+      gates at 2 and 3): ``--search=puct_reuse --arena_search=gumbel`` and
+      ``--search=gumbel``; the record kinds in order and the checkpoints.
+
 The net, search, arena, self-play, train and driver lines with a time end
 with the card's name and power limit (printed alone first).  The total
 time is printed before the two JSON lines.  The
@@ -122,6 +154,7 @@ device the script exits non-zero and prints no result.  It imports no jax.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -255,6 +288,19 @@ TRAIN_LR = 1e-3  # train_arena_gate's --lr
 # the driver's budget: a short run, then --resume one iteration further
 DRIVER = {"board_size": 8, "batch": 64, "chunk_steps": 8, "simulations": 16, "channels": 64,
           "blocks": 4, "arena_batch": 32, "arena_sims": 8, "seed": 0}
+
+# --- the Gumbel and reuse searches and their arms (plain torch on the card) -
+GUMBEL_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_gumbel.json"
+REUSE_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_reuse.json"
+ARMS_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_selfplay_arms.json"
+GUMBEL_TOL = {"improved": 1e-6, "root_q": 1e-5}
+ARMS_POLICY_TOL = 1e-6  # the Gumbel chunk's improved-policy targets
+# config 5's chunk for the arms, cut from 32 to 16 plies for the time limit
+ARM_CHUNK_STEPS = 16
+# the arena arms at ARENA_ROW's board and batch; arena_match_asym's sims_a
+# cut to 8 (the JAX script's default is 16) for the time limit
+ASYM_SIMS = (8, 16)
+DRIVER_ARMS = (["--search=puct_reuse", "--arena_search=gumbel"], ["--search=gumbel"])
 
 
 def require(ok: bool, what: str) -> None:
@@ -1202,6 +1248,309 @@ def driver_path(dev, card: str) -> None:
         require(it == 4 and on_card, "the checkpoint tensors load onto the card")
 
 
+def gumbel_equal_path(dev) -> None:
+    """Phase 20: gumbel_search_batch and search_batch_reuse against the JAX
+    fixtures, both backups and both node-state gathers."""
+    zero_counts()
+    dense = mcts._DENSE_GATHER_MAX_NODES
+    rec = json.loads(GUMBEL_FIXTURE.read_text())
+    n = rec["board_size"]
+    roots = cases.scenario_roots(rec["scenarios"], n, dev)
+    for case in rec["search"]:
+        sims, mc = case["num_simulations"], case["max_considered"]
+        noise = torch.from_numpy(cases.gumbel_case_noise(sims, mc, len(rec["scenarios"])))
+        for backup in ("amask", "walk"):
+            for gather, limit in (("dense", dense), ("gather", 0)):
+                mcts._DENSE_GATHER_MAX_NODES = limit
+                action, improved, root_q = mcts.gumbel_search_batch(
+                    None, roots, torch.Generator(device=dev).manual_seed(0),
+                    evaluator=cases.EVALUATORS["table"](n * n), board_size=n,
+                    num_simulations=sims, max_considered=mc, gumbel_noise=noise.to(dev),
+                    backup=backup)
+                mcts._DENSE_GATHER_MAX_NODES = dense
+                same = action.cpu().tolist() == case["action"]
+                p_err = float((improved.cpu() - torch.tensor(case["improved"])).abs().max())
+                q_err = float((root_q.cpu() - torch.tensor(case["root_q"])).abs().max())
+                print(f"[gumbel equal] n={n} sims={sims} max_considered={mc} {backup} {gather}: "
+                      f"actions {'equal' if same else 'DIFFER'}, |improved - JAX| {p_err} "
+                      f"(tolerance {GUMBEL_TOL['improved']}), |root_q - JAX| {q_err}")
+                require(same and p_err <= GUMBEL_TOL["improved"]
+                        and q_err <= GUMBEL_TOL["root_q"], f"gumbel vs JAX at {sims}/{mc}")
+
+    rec = json.loads(REUSE_FIXTURE.read_text())
+    for seq in rec["sequences"]:
+        sims, cap, kind = seq["num_simulations"], seq["reuse_cap"], seq["evaluator"]
+        for backup in ("amask", "walk"):
+            for gather, limit in (("dense", dense), ("gather", 0)):
+                mcts._DENSE_GATHER_MAX_NODES = limit
+                got = cases.reuse_sequence(dev, rec["scenarios"], rec["board_size"], sims, cap,
+                                           kind, backup, len(seq["moves"]))
+                mcts._DENSE_GATHER_MAX_NODES = dense
+                same = all(
+                    v.tolist() == w["visits"] and a.tolist() == w["actions"]
+                    and st == {"reused_envs": w["reused_envs"],
+                               "inherited_visits": w["inherited_visits"]}
+                    for (v, _, st, a), w in zip(got, seq["moves"]))
+                q_err = max(float(abs(q - torch.tensor(w["root_q"]).numpy()).max())
+                            for (_, q, _, _), w in zip(got, seq["moves"]))
+                print(f"[reuse equal] n={rec['board_size']} sims={sims} cap={cap} {kind} "
+                      f"{backup} {gather}, {len(got)} moves: root visits and stats "
+                      f"{'equal' if same else 'DIFFER'} at every move, |root_q - JAX| {q_err}; "
+                      f"reused envs {[st['reused_envs'] for _, _, st, _ in got]}")
+                require(same and q_err <= 1e-5, f"the reuse sequence vs JAX ({sims}/{cap} {kind})")
+    no_kernel_launched("the Gumbel and reuse searches")
+
+
+def arms_equal_path(dev) -> None:
+    """Phase 21: the deterministic reuse and Gumbel chunks against the JAX
+    records."""
+    zero_counts()
+    rec = json.loads(ARMS_FIXTURE.read_text())
+    for search, want in rec["chunks"].items():
+        got = cases.sample_record(*cases.arm_chunk(dev, search))
+        same = {k: got[k] == want[k] for k in ("obs_sha256", "obs_shape", "value", "weight",
+                                               "final_digest")}
+        same["aux"] = {k: got["aux"][k] for k in want["aux"]} == want["aux"]
+        p_err = float((torch.tensor(got["policy"]) - torch.tensor(want["policy"])).abs().max())
+        tol = ARMS_POLICY_TOL if search == "gumbel" else 0.0
+        print(f"[selfplay equal] search={search} n={rec['board_size']} batch={rec['batch']} "
+              f"steps={rec['num_steps']} sims={rec['num_simulations']} table net, greedy, no "
+              f"root noise{', zero Gumbels' if search == 'gumbel' else ''}, value_bootstrap="
+              f"{rec['value_bootstrap']}: {same}; |policy - JAX| {p_err} (tolerance {tol})")
+        require(all(same.values()) and p_err <= tol, f"the {search} chunk vs JAX")
+    no_kernel_launched("the arms' chunks")
+
+
+def cuda_timed(fn, *args, **kwargs):
+    """(fn's output, its milliseconds by CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args, **kwargs)
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def search_arms_rate_path(dev, card: str) -> None:
+    """Phase 22: at config-5 width, ``search_batch``, ``gumbel_search_batch``
+    and ``search_batch_reuse`` after a played ply, timed in turns."""
+    zero_counts()
+    n, b, _, sims, ch, blocks = SELFPLAY_ROW
+    net = create_net(n, ch, blocks, device=dev)
+    evaluator = mcts.net_evaluator(call_net, n)
+    roots = tbit.bit_random_rollout(3, n, 24, tbit.bit_reset(n, b, dev))[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    kw = dict(evaluator=evaluator, board_size=n, num_simulations=sims)
+    legal = tbit.bit_legal_mask_flat(roots, roots.current_player.clamp(0, 1), n).T
+
+    # the reuse search's input: the trees of a first (cold) call and the
+    # greedy ply played from them
+    tree = mcts.init_reuse_tree(roots, board_size=n, num_simulations=sims)
+    nodes = tree.visit.shape[1]
+    done = torch.ones(b, dtype=torch.bool, device=dev)
+    played = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    (probs, _, tree, cold), c_ms = cuda_timed(
+        mcts.search_batch_reuse, net, roots, gen, tree, played, done, return_stats=True, **kw)
+    played = torch.where(legal, probs, -1.0).argmax(-1).to(torch.int32)
+    after, done, _ = tbit.bit_step_auto_reset(roots, played, n)
+    searches = {
+        "search_batch": lambda: mcts.search_batch(net, roots, gen, **kw),
+        "gumbel_search_batch": lambda: mcts.gumbel_search_batch(net, roots, gen, **kw),
+        "search_batch_reuse": lambda: mcts.search_batch_reuse(
+            net, after, gen, tree, played, done, return_stats=True, **kw),
+    }
+    ms, peak, out = {k: [] for k in searches}, dict.fromkeys(searches, 0.0), {}
+    for fn in searches.values():
+        fn()  # warm-up
+    for _ in range(SEARCH_REPS):  # in turns
+        for name, fn in searches.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out[name], t = cuda_timed(fn)
+            ms[name].append(t)
+            peak[name] = max(peak[name], torch.cuda.max_memory_allocated() / 2**20)
+    med = {k: statistics.median(v) for k, v in ms.items()}
+
+    action, improved, root_q = out["gumbel_search_batch"]
+    require(bool(legal[torch.arange(b, device=dev), action].all()), "the Gumbel actions are legal")
+    require(bool((improved[~legal] == 0).all()) and bool(torch.isfinite(root_q).all())
+            and float((improved.sum(-1) - 1).abs().max()) <= 1e-5, "the improved policy")
+    probs, root_q, tree_r, stats = out["search_batch_reuse"]
+    legal_after = tbit.bit_legal_mask_flat(after, after.current_player.clamp(0, 1), n).T
+    visits = torch.where(legal_after, mcts._root_visits(tree_r), 0)
+    require(bool((probs[~legal_after] == 0).all()) and bool((root_q.abs() <= 1).all()),
+            "the reuse search's invariants")
+    require(bool((visits.sum(-1) >= sims).all()), "every root holds at least the budget")
+    require(stats["reused_envs"] > 0 and stats["inherited_visits"] > b,
+            "the played ply's subtrees were reused")
+    m, schedule = mcts._halving_schedule(16, n * n, sims)
+    print(f"[gumbel rate] config-5 width: n={n} batch={b} sims={sims} net {ch}x{blocks} bf16, "
+          f"{SEARCH_REPS} rounds in turns with search_batch and the reuse search: "
+          f"search_batch median {med['search_batch']} ms of {ms['search_batch']} -> "
+          f"{med['search_batch'] / sims} ms a simulation, peak {peak['search_batch']} MiB; "
+          f"gumbel_search_batch (max_considered 16: m={m}, schedule {schedule}) median "
+          f"{med['gumbel_search_batch']} ms of {ms['gumbel_search_batch']} -> "
+          f"{med['gumbel_search_batch'] / sims} ms a simulation (ratio "
+          f"{med['gumbel_search_batch'] / med['search_batch']}), peak "
+          f"{peak['gumbel_search_batch']} MiB [{card}]")
+    gather = "per-element" if nodes > mcts._DENSE_GATHER_MAX_NODES else "dense"
+    backup = "amask" if mcts._resolve_backup("auto", nodes) else "walk"
+    print(f"[reuse rate] config-5 width: n={n} batch={b} sims={sims} reuse_cap {sims + 1} "
+          f"({nodes} slots, {gather} gather, {backup} backup): the first (cold) call {c_ms} ms "
+          f"(reused {cold['reused_envs']}); after a played greedy ply median "
+          f"{med['search_batch_reuse']} ms of {ms['search_batch_reuse']} -> "
+          f"{med['search_batch_reuse'] / sims} ms a simulation (ratio to search_batch "
+          f"{med['search_batch_reuse'] / med['search_batch']}); reused_envs "
+          f"{stats['reused_envs']} of {b}, inherited_visits {stats['inherited_visits']} "
+          f"({stats['inherited_visits'] / b} a root); peak memory {peak['search_batch_reuse']} "
+          f"MiB [{card}]")
+    no_kernel_launched("the Gumbel and reuse searches at config-5 width")
+
+
+def arms_rate_path(dev, card: str) -> None:
+    """Phase 23: one config-5 chunk of each arm, cut to 16 plies."""
+    zero_counts()
+    n, b, _, sims, ch, blocks = SELFPLAY_ROW
+    steps = ARM_CHUNK_STEPS
+    net = create_net(n, ch, blocks, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for search, name in (("gumbel", "gumbel_search_batch"), ("puct_reuse", "search_batch_reuse")):
+        kw = dict(board_size=n, num_simulations=sims, temp_moves=SELFPLAY_TEMP_MOVES,
+                  search=search)
+        if search == "puct_reuse":
+            kw.update(dirichlet_alpha=0.3, dirichlet_frac=0.25)
+        selfplay.selfplay_chunk(net, tbit.bit_reset(n, b, dev), gen, num_steps=2, **kw)  # warm-up
+        events = []
+        real = getattr(mcts, name)
+
+        def timed(*args, real=real, **kwargs):
+            out, ms = cuda_timed(real, *args, **kwargs)
+            events.append(ms)
+            return out
+
+        roots = tbit.bit_reset(n, b, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        setattr(mcts, name, timed)
+        try:
+            t0 = time.perf_counter()
+            final, sample, aux = selfplay.selfplay_chunk(net, roots, gen, num_steps=steps,
+                                                         debug_trace=True, **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            setattr(mcts, name, real)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        require(len(events) == steps, "one search a ply")
+        states, bs = [], roots
+        for a in aux["actions"]:
+            states.append(bs)
+            bs = tbit.bit_step_auto_reset(bs, a, n)[0]
+        require(tbit.state_digest(bs) == tbit.state_digest(final), "the replay ends at the final state")
+        for k, s in enumerate(states):
+            legal = tbit.bit_legal_mask_flat(s, s.current_player.clamp(0, 1), n).T
+            require(bool(legal[torch.arange(b, device=dev), aux["actions"][k].long()].all()),
+                    f"legal moves at step {k}")
+            require(bool((sample.policy[k][~legal] == 0).all()), f"no policy mass off the legal set ({k})")
+        row_err = float((sample.policy.sum(-1) - 1).abs().max())
+        require(row_err <= 1e-5 and bool((sample.value.abs() <= 1).all()), "the targets")
+        print(f"[selfplay {search.replace('puct_', '')} rate] config 5 cut to {steps} plies: "
+              f"n={n} batch={b} sims={sims} net {ch}x{blocks} bf16, search={search}"
+              f"{', temp_moves=16, Dirichlet 0.3/0.25' if search == 'puct_reuse' else ''}: "
+              f"{secs} s -> {b * steps / secs} moves/s, {secs / steps} s a ply; {name} "
+              f"{sum(events) / 1e3 / secs} of the time (CUDA events); frames with weight 1 "
+              f"{int((sample.weight == 1).sum())} of {sample.weight.numel()}; peak memory {peak} "
+              f"MiB; invariants hold (policy rows sum to 1 within {row_err}) [{card}]")
+    no_kernel_launched("the arms' config-5 chunks")
+
+
+def arena_arms_path(dev, card: str) -> None:
+    """Phase 24: the Gumbel, reuse and asymmetric arenas at the arena row's
+    board and batch, every move checked legal."""
+    zero_counts()
+    n, b, sims = ARENA_ROW
+    net = create_net(n, device=dev)
+    sims_a, sims_b = ASYM_SIMS
+    runs = [
+        (f"arena_match(search='gumbel') vs random_b, sims={sims}",
+         lambda g: arena.arena_match(net, net, g, board_size=n, batch=b, num_simulations=sims,
+                                     random_b=True, search="gumbel", device=dev)),
+        (f"arena_match(reuse_a=True), sims={sims}",
+         lambda g: arena.arena_match(net, net, g, board_size=n, batch=b, num_simulations=sims,
+                                     reuse_a=True, device=dev)),
+        (f"arena_match_asym, gumbel sims_a={sims_a} vs puct sims_b={sims_b}",
+         lambda g: arena.arena_match_asym(net, g, board_size=n, batch=b, sims_a=sims_a,
+                                          sims_b=sims_b, device=dev)),
+    ]
+    for what, play in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with cases.checked_moves() as counts:
+            got = play(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        final = got["final_state"]
+        require(counts["illegal"] == 0 and counts["moves"] == got["moves"] * b,
+                f"every move legal ({what})")
+        require(bool((final.result != geo.RESULT_OPEN).all()), f"every game ended ({what})")
+        require(got["a_wins"] + got["b_wins"] + got["draws"] == b and
+                got["a_score"] == (got["a_wins"] + 0.5 * got["draws"]) / b, f"the tally ({what})")
+        env_moves = int(final.move_counter.sum())
+        print(f"[arena gumbel] {what}, untrained net (128 channels, 6 blocks, bf16) n={n} "
+              f"batch={b}: {dict((k, got[k]) for k in ('a_wins', 'b_wins', 'draws', 'a_score'))},"
+              f" {got['moves']} lockstep plies ({s / got['moves']} s a ply), {counts['moves']} "
+              f"moves checked legal, {env_moves} moves played in {s} s -> {env_moves / s} "
+              f"moves/s [{card}]")
+    no_kernel_launched("the arena arms")
+
+
+@contextlib.contextmanager
+def driver_arms(dev, card: str):
+    """Phase 25: the driver as two programs with the other searches, started
+    on entry and checked on exit (their loops wait on the host, so they run
+    beside phase 19's)."""
+    expect = ["train", "gate_vs_init", "train", "gate_vs_init", "best", "gate_vs_random", "done"]
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = []
+        t0 = time.perf_counter()
+        try:
+            for i, flags in enumerate(DRIVER_ARMS):
+                ckpt, log = os.path.join(tmp, f"ckpt{i}"), os.path.join(tmp, f"gate{i}.jsonl")
+                cmd = [sys.executable, "-m", "twixt_for_open_spiel_tpu_torch.train_arena_gate",
+                       *(f"--{k}={v}" for k, v in DRIVER.items()), "--iterations=3",
+                       "--gates=2,3", *flags, f"--checkpoint_dir={ckpt}", f"--log={log}"]
+                runs.append((flags, ckpt, log, subprocess.Popen(
+                    cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            yield
+            for flags, ckpt, log, proc in runs:
+                _, err = proc.communicate(timeout=600)
+                secs = time.perf_counter() - t0
+                require(proc.returncode == 0, f"the driver {flags} exits 0: {err[-2000:]}")
+                opts = dict(f[2:].split("=", 1) for f in flags if "=" in f)
+                search, arena_search = opts["search"], opts.get("arena_search", "puct")
+                require("device=cuda" in err and
+                        f"search={search} arena_search={arena_search}" in err,
+                        f"the driver ran {flags} on the card")
+                with open(log) as f:
+                    recs = [json.loads(line) for line in f]
+                kinds = [r["kind"] for i, r in enumerate(recs)
+                         if i == 0 or r["kind"] != recs[i - 1]["kind"]]
+                print(f"[driver] {' '.join(flags)} --iterations=3 --gates=2,3, beside phase 19: "
+                      f"ended {secs} s after its start; records {[r['kind'] for r in recs]} "
+                      f"[{card}]")
+                for r in recs:
+                    print(f"[driver]   {json.dumps(r)}")
+                require(kinds == expect, f"the record kinds in order: {kinds}")
+                params, _, it = serialization.restore_training(ckpt, dev)
+                require(it == 3 and all(t.is_cuda for t in params.values()), "the checkpoint")
+        finally:
+            for *_, proc in runs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1228,7 +1577,13 @@ def main() -> int:
     selfplay_equal_path(dev)
     train_equal_path(dev)
     selfplay_rate_path(dev, card)
-    driver_path(dev, card)
+    with driver_arms(dev, card):
+        driver_path(dev, card)
+    gumbel_equal_path(dev)
+    arms_equal_path(dev)
+    search_arms_rate_path(dev, card)
+    arms_rate_path(dev, card)
+    arena_arms_path(dev, card)
 
     print(f"[total] {time.perf_counter() - t_start} s from the build to here")
     print(json.dumps({"kernels": [*bit["reports"], tensor, store]}))

@@ -9,9 +9,15 @@ the tally, so the JAX final boards come from a mirror of its loop here,
 held to the same tally and move count.  The random parts (sampled plies,
 the random bot) are pinned by distribution and by legality.
 
-``tests/fixtures/torch_port_arena.json`` holds the JAX record;
-``chip_smoke.py`` holds the port on the card to it.  Regenerate it with
-``PYTHONPATH=. python tests/test_torch_arena.py``.
+The deterministic match with ``reuse_a=True`` (A's searches inherit the
+game's tree) gives JAX's tally too.  The Gumbel arena and
+``arena_match_asym`` draw Gumbels from the generator, so they are pinned by
+legality (every move checked against its state's legal mask) and by their
+tallies' invariants.
+
+``tests/fixtures/torch_port_arena.json`` and ``torch_port_arena_reuse.json``
+hold the JAX records; ``chip_smoke.py`` holds the port on the card to the
+first.  Regenerate them with ``PYTHONPATH=. python tests/test_torch_arena.py``.
 """
 
 import functools
@@ -38,6 +44,7 @@ from twixt_for_open_spiel_tpu_torch.ops import geometry as geo
 torch.set_num_threads(1)
 
 FIXTURE = pathlib.Path(__file__).parent / "fixtures" / "torch_port_arena.json"
+REUSE_FIXTURE = pathlib.Path(__file__).parent / "fixtures" / "torch_port_arena_reuse.json"
 MATCH = {"board_size": 5, "batch": 8, "num_simulations": 12}
 TALLY_KEYS = ("a_wins", "b_wins", "draws", "games", "moves", "a_score")
 
@@ -102,9 +109,21 @@ def jax_record():
     }
 
 
+def jax_reuse_record():
+    tally = jarena.arena_match(
+        jax_params(0), jax_params(1), jax.random.PRNGKey(0), net_apply=jax_table_net,
+        temp_moves=0, reuse_a=True, **MATCH)
+    return {**MATCH, "reuse_a": True, "tally": {k: float(tally[k]) for k in TALLY_KEYS}}
+
+
 @functools.lru_cache(maxsize=None)
 def stored():
     return json.loads(FIXTURE.read_text())
+
+
+@functools.lru_cache(maxsize=None)
+def stored_reuse():
+    return json.loads(REUSE_FIXTURE.read_text())
 
 
 def port_match(generator_seed=0, **kw):
@@ -178,12 +197,91 @@ def test_net_arena_plays_legal_games(random_b):
     assert others - {tbit.state_digest(final)}
 
 
-def test_unported_options_raise():
+def test_reuse_fixture_matches_jax():
+    assert stored_reuse() == jax_reuse_record()
+
+
+def test_reuse_arena_matches_jax():
+    """A's searches reuse the game's tree: JAX's tally and move count, legal
+    moves only, and other games than the cold match's."""
+    with cases.checked_moves() as counts:
+        got = port_match(reuse_a=True)
+    assert {k: float(got[k]) for k in TALLY_KEYS} == stored_reuse()["tally"]
+    assert counts["illegal"] == 0 and counts["moves"] == got["moves"] * MATCH["batch"]
+    assert tbit.state_digest(got["final_state"]) != stored()["digest"]
+
+
+def check_tally(t, batch, n):
+    assert t["a_wins"] + t["b_wins"] + t["draws"] == t["games"] == batch
+    assert 0 < t["moves"] <= n * n - 2
+    assert bool((t["final_state"].result != geo.RESULT_OPEN).all())
+    assert t["a_score"] == (t["a_wins"] + 0.5 * t["draws"]) / batch
+
+
+@pytest.mark.parametrize("random_b", [False, True])
+def test_gumbel_arena_plays_legal_games(random_b):
+    n, batch = 5, 4
+    net = create_net(n, channels=8, blocks=1, device="cpu")
+
+    def play(seed):
+        with cases.checked_moves() as counts:
+            t = tarena.arena_match(net, net, torch.Generator().manual_seed(seed), board_size=n,
+                                   batch=batch, num_simulations=4, temp_moves=2,
+                                   random_b=random_b, search="gumbel", device="cpu")
+        assert counts["illegal"] == 0 and counts["moves"] == t["moves"] * batch
+        return t
+
+    t = play(0)
+    check_tally(t, batch, n)
+    again = play(0)
+    assert tbit.state_digest(again["final_state"]) == tbit.state_digest(t["final_state"])
+    others = {tbit.state_digest(play(s)["final_state"]) for s in (1, 2)}
+    assert others - {tbit.state_digest(t["final_state"])}
+
+
+@pytest.mark.parametrize("greedy_a", [True, False])
+def test_asym_arena_plays_legal_games(greedy_a, monkeypatch):
+    """Gumbel for A and PUCT for B, both on the whole batch every ply; A
+    plays the argmax of the improved policy (or the surviving candidate),
+    B its visit counts."""
+    n, batch = 5, 4
+    net = create_net(n, channels=8, blocks=1, device="cpu")
+    calls = []
+    real_g, real_p = tarena.mcts.gumbel_search_batch, tarena.mcts.search_batch
+
+    def spy_g(*args, **kw):
+        out = real_g(*args, **kw)
+        calls.append(("gumbel", kw["num_simulations"], kw["max_considered"], out))
+        return out
+
+    def spy_p(*args, **kw):
+        out = real_p(*args, **kw)
+        calls.append(("puct", kw["num_simulations"], kw["dirichlet_frac"], out))
+        return out
+
+    monkeypatch.setattr(tarena.mcts, "gumbel_search_batch", spy_g)
+    monkeypatch.setattr(tarena.mcts, "search_batch", spy_p)
+    with cases.checked_moves() as counts:
+        t = tarena.arena_match_asym(net, torch.Generator().manual_seed(1), board_size=n,
+                                    batch=batch, sims_a=4, sims_b=6, temp_moves=0,
+                                    greedy_a=greedy_a, max_considered_a=3, device="cpu")
+    check_tally(t, batch, n)
+    assert counts["illegal"] == 0 and counts["moves"] == t["moves"] * batch
+    assert [c[:3] for c in calls] == [("gumbel", 4, 3), ("puct", 6, 0.0)] * t["moves"]
+    # the first ply, red to move everywhere: A (red in even envs) plays the
+    # improved policy's argmax or its candidate, B the visit argmax
+    cand, improved, _ = calls[0][3]
+    probs, _ = calls[1][3]
+    want_a = improved.argmax(-1) if greedy_a else cand
+    first = counts["actions"][0]
+    assert torch.equal(first[0::2], want_a[0::2])
+    assert torch.equal(first[1::2], probs.argmax(-1)[1::2])
+
+
+def test_arena_option_checks():
     kw = dict(board_size=5, batch=2, num_simulations=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tarena.arena_match(None, None, torch.Generator(), search="gumbel", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tarena.arena_match(None, None, torch.Generator(), reuse_a=True, **kw)
+    with pytest.raises(ValueError, match="reuse_a is PUCT-only"):
+        tarena.arena_match(None, None, torch.Generator(), search="gumbel", reuse_a=True, **kw)
     with pytest.raises(ValueError, match="search"):
         tarena.arena_match(None, None, torch.Generator(), search="beam", **kw)
 
@@ -192,8 +290,12 @@ def test_arena_defaults_to_the_card():
     params = inspect.signature(tarena.arena_match).parameters
     assert params["device"].default == "cuda"
     assert params["temp_moves"].default == 6 and params["search"].default == "puct"
+    asym = inspect.signature(tarena.arena_match_asym).parameters
+    assert asym["device"].default == "cuda" and asym["greedy_a"].default is True
+    assert asym["max_considered_a"].default == 16 and asym["temp_moves"].default == 6
 
 
 if __name__ == "__main__":
     FIXTURE.write_text(json.dumps(jax_record(), indent=1) + "\n")
+    REUSE_FIXTURE.write_text(json.dumps(jax_reuse_record(), indent=1) + "\n")
     print(FIXTURE.read_text())

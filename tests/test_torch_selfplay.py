@@ -10,8 +10,16 @@ noise, sampled plies) are pinned by distribution and by legality.  A
 ground-truth pin fixes the sign conventions by a position whose winner is
 known, on both sides.
 
-``tests/fixtures/torch_port_selfplay.json`` holds the JAX record;
-``chip_smoke.py`` holds the port on the card to it.  Regenerate it with
+The other search arms have deterministic chunks too, on the same roots
+with the value bootstrap: ``search="puct_reuse"`` (greedy, no root noise)
+equals JAX's ``selfplay_chunk``, and ``search="gumbel"`` with zero
+Gumbels (the port's draw patched) equals a mirror of JAX's chunk loop
+that passes ``gumbel_noise=zeros`` (the improved-policy targets within
+1e-6, the rest bit for bit).
+
+``tests/fixtures/torch_port_selfplay.json`` and
+``torch_port_selfplay_arms.json`` hold the JAX records; ``chip_smoke.py``
+holds the port on the card to them.  Regenerate them with
 ``PYTHONPATH=. python tests/test_torch_selfplay.py``.
 """
 
@@ -26,8 +34,11 @@ import pytest
 import torch
 
 from tests import torch_port_cases as cases
+from twixt_for_open_spiel_tpu.models import mcts as jmcts
 from twixt_for_open_spiel_tpu.models import selfplay as jsp
 from twixt_for_open_spiel_tpu.ops import bitboard as jbit
+from twixt_for_open_spiel_tpu.ops import geometry as jgeo
+from twixt_for_open_spiel_tpu.ops import observe as jobs
 from twixt_for_open_spiel_tpu_torch.models import mcts as tmcts
 from twixt_for_open_spiel_tpu_torch.models import selfplay as tsp
 from twixt_for_open_spiel_tpu_torch.models.network import create_net
@@ -40,6 +51,8 @@ from twixt_for_open_spiel_tpu_torch.ops import step as tstep
 torch.set_num_threads(1)
 
 FIXTURE = pathlib.Path(__file__).parent / "fixtures" / "torch_port_selfplay.json"
+ARMS_FIXTURE = pathlib.Path(__file__).parent / "fixtures" / "torch_port_selfplay_arms.json"
+IMPROVED_TOL = 1e-6
 BOOTSTRAPS = (0.0, 0.5)
 N = 5
 
@@ -63,13 +76,21 @@ def port_sample(sample):
                       *(torch.from_numpy(np.array(x)) for x in sample[1:]))
 
 
-def jax_record():
+def jax_chunk_inputs():
+    """The deterministic chunk's table-net parameters and roots, for JAX."""
     c = cases.CHUNK
     n = c["board_size"]
     table, offset = cases.arena_table_params(n * n, 0, "cpu")
     params = (jnp.asarray(table.numpy()), jnp.float32(offset))
     roots, _ = jbit.bit_random_rollout(c["rollout_seed"], n, c["rollout_steps"],
                                        jbit.bit_reset(n, c["batch"]))
+    return params, roots
+
+
+def jax_record():
+    c = cases.CHUNK
+    n = c["board_size"]
+    params, roots = jax_chunk_inputs()
     rec = {**c, "temp_moves": 0, "dirichlet_frac": 0.0, "chunks": {}}
     for vb in BOOTSTRAPS:
         final, sample, aux = jsp.selfplay_chunk(
@@ -81,9 +102,75 @@ def jax_record():
     return rec
 
 
+def jax_gumbel_chunk(params, roots, value_bootstrap):
+    """A mirror of JAX ``selfplay_chunk(search="gumbel")``'s scan and
+    backward scan, its search called with ``gumbel_noise=zeros``: (final
+    BitState, Sample, aux with the actions)."""
+    c = cases.CHUNK
+    n = c["board_size"]
+    zeros = jnp.zeros((c["batch"], n * n), jnp.float32)
+    evaluator = jmcts.net_evaluator(jax_chunk_net, n)
+    bs, tr = roots, {k: [] for k in ("obs", "policy", "player", "done", "result", "actions")}
+    for t in range(c["num_steps"]):
+        tr["obs"].append(jobs.bit_observation_packed_with_legal(bs, n))
+        tr["player"].append(jnp.clip(bs.current_player, 0, 1))
+        actions, probs, root_q = jmcts.gumbel_search_batch(
+            params, bs, jax.random.PRNGKey(t), evaluator=evaluator, board_size=n,
+            num_simulations=c["num_simulations"], gumbel_noise=zeros)
+        actions = actions.astype(jnp.int32)
+        bs, done, result = jbit.bit_step_auto_reset(bs, actions, n)
+        tr["policy"].append(probs)
+        tr["done"].append(done)
+        tr["result"].append(result)
+        tr["actions"].append(actions)
+    tr = {k: jnp.stack(v) for k, v in tr.items()}
+    z_red = jnp.where(tr["player"][-1] == 0, root_q, -root_q)
+    w = jnp.full(z_red.shape, float(value_bootstrap))
+    zs, ws = [], []
+    for t in reversed(range(c["num_steps"])):
+        z_here = jnp.where(tr["result"][t] == jgeo.RESULT_RED_WIN, 1.0,
+                           jnp.where(tr["result"][t] == jgeo.RESULT_BLUE_WIN, -1.0, 0.0))
+        z_red = jnp.where(tr["done"][t], z_here, z_red)
+        w = jnp.where(tr["done"][t], 1.0, w)
+        zs.append(z_red)
+        ws.append(w)
+    z_red = jnp.stack(zs[::-1])
+    sample = jsp.Sample(obs=tr["obs"], policy=tr["policy"],
+                        value=jnp.where(tr["player"] == 0, z_red, -z_red),
+                        weight=jnp.stack(ws[::-1]).astype(jnp.float32))
+    return bs, sample, {"player": tr["player"], "root_q_last": root_q,
+                        "actions": tr["actions"]}
+
+
+def jax_arms_record():
+    c = cases.CHUNK
+    n = c["board_size"]
+    params, roots = jax_chunk_inputs()
+    rec = {**c, "temp_moves": 0, "dirichlet_frac": 0.0, "value_bootstrap": cases.ARM_BOOTSTRAP,
+           "gumbel_noise": 0.0, "tolerance": f"gumbel policy {IMPROVED_TOL}; the rest exact",
+           "chunks": {}}
+    for search in cases.ARMS:
+        if search == "gumbel":
+            final, sample, aux = jax_gumbel_chunk(params, roots, cases.ARM_BOOTSTRAP)
+        else:
+            final, sample, aux = jsp.selfplay_chunk(
+                params, roots, jax.random.PRNGKey(0), net_apply=jax_chunk_net, board_size=n,
+                num_steps=c["num_steps"], num_simulations=c["num_simulations"], temp_moves=0,
+                search=search, dirichlet_frac=0.0, value_bootstrap=cases.ARM_BOOTSTRAP,
+                debug_trace=True)
+        aux = {k: torch.from_numpy(np.array(v)) for k, v in aux.items()}
+        rec["chunks"][search] = cases.sample_record(port_state(final), port_sample(sample), aux)
+    return rec
+
+
 @functools.lru_cache(maxsize=None)
 def stored():
     return json.loads(FIXTURE.read_text())
+
+
+@functools.lru_cache(maxsize=None)
+def stored_arms():
+    return json.loads(ARMS_FIXTURE.read_text())
 
 
 def test_fixture_matches_jax():
@@ -110,6 +197,34 @@ def test_deterministic_chunk_matches_jax(vb):
     final2, sample2 = cases.deterministic_chunk("cpu", vb)
     assert tbit.state_digest(final2) == want["final_digest"]
     assert all(torch.equal(a, b) for a, b in zip(sample, sample2))
+
+
+def test_arms_fixture_matches_jax():
+    rec = jax_arms_record()
+    assert stored_arms() == rec
+    for search in cases.ARMS:
+        # finished, bootstrapped and exact-outcome frames all occur
+        assert set(np.unique(rec["chunks"][search]["weight"])) == {0.5, 1.0}, search
+        assert np.any(np.array(rec["chunks"][search]["aux"]["root_q_last"]) != 0), search
+    # the arms differ from each other and from the cold PUCT chunk
+    digests = {rec["chunks"][s]["obs_sha256"] for s in cases.ARMS}
+    digests.add(stored()["chunks"]["0.5"]["obs_sha256"])
+    assert len(digests) == 3
+
+
+@pytest.mark.parametrize("search", cases.ARMS)
+def test_arm_chunk_matches_jax(search):
+    final, sample, aux = cases.arm_chunk("cpu", search)
+    want = stored_arms()["chunks"][search]
+    got = cases.sample_record(final, sample, aux)
+    for key in ("obs_sha256", "obs_shape", "value", "weight", "final_digest"):
+        assert got[key] == want[key], key
+    assert {k: got["aux"][k] for k in want["aux"]} == want["aux"]
+    if search == "gumbel":
+        np.testing.assert_allclose(np.array(got["policy"]), np.array(want["policy"]),
+                                   rtol=0, atol=IMPROVED_TOL)
+    else:
+        assert got["policy"] == want["policy"]
 
 
 def small_net():
@@ -295,11 +410,55 @@ def test_sampled_plies_by_frequency(temperature):
     assert bool(((freq - want).abs() <= 5 * se + 1e-12).all()), (freq, want)
 
 
-@pytest.mark.parametrize("search,item", [("gumbel", "item 4"), ("puct_reuse", "item 5")])
-def test_unported_search_arms_raise(search, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, {item}"):
-        tsp.selfplay_chunk(None, tbit.bit_reset(N, 2, "cpu"), torch.Generator(),
-                           board_size=N, num_steps=1, num_simulations=2, search=search)
+@pytest.mark.parametrize("search", ["gumbel", "puct_reuse"])
+def test_search_arms_run(search, monkeypatch):
+    """Each arm plays legal moves from its own search, targets a
+    distribution over the legal set, and feeds its root values to the
+    bootstrap; a Gumbel chunk plays its surviving candidates and a reuse
+    chunk carries its tree (a tight ``reuse_cap`` is passed through)."""
+    b, t = 4, 6
+    roots = tbit.bit_random_rollout(5, N, 4, tbit.bit_reset(N, b, "cpu"))[0]
+    seen = []
+    real_gumbel, real_reuse = tmcts.gumbel_search_batch, tmcts.search_batch_reuse
+
+    def spy_gumbel(*args, **kw):
+        out = real_gumbel(*args, **kw)
+        seen.append(out[0])
+        return out
+
+    def spy_reuse(*args, **kw):
+        seen.append((args[3], args[4], args[5], kw["reuse_cap"]))
+        return real_reuse(*args, **kw)
+
+    monkeypatch.setattr(tmcts, "gumbel_search_batch", spy_gumbel)
+    monkeypatch.setattr(tmcts, "search_batch_reuse", spy_reuse)
+    final, sample, aux = tsp.selfplay_chunk(
+        small_net(), roots, torch.Generator().manual_seed(2), board_size=N, num_steps=t,
+        num_simulations=4, search=search, reuse_cap=3, value_bootstrap=0.5, debug_trace=True)
+    assert len(seen) == t
+    states, end = replay(roots, aux["actions"], N)
+    assert tbit.state_digest(end) == tbit.state_digest(final)
+    torch.testing.assert_close(sample.policy.sum(-1), torch.ones(t, b), rtol=0, atol=1e-5)
+    for k, bs in enumerate(states):
+        mask = tbit.bit_legal_mask_flat(bs, bs.current_player.clamp(0, 1), N).T
+        assert bool((sample.policy[k][~mask] == 0).all()), k
+        assert bool(mask[torch.arange(b), aux["actions"][k].long()].all()), k
+    if search == "gumbel":
+        assert all(torch.equal(a.int(), p) for a, p in zip(seen, aux["actions"]))
+    else:
+        tree0, played0, done0, cap = seen[0]
+        assert cap == 3 and tree0.visit.shape == (b, 3 + 4) and not bool(tree0.linked.any())
+        assert played0.tolist() == [-1] * b and bool(done0.all())
+        for k in range(1, t):  # the previous ply's action and reset flags
+            _, played, done, _ = seen[k]
+            assert torch.equal(played, aux["actions"][k - 1])
+    z_red = torch.where(aux["player"][-1] == 0, aux["root_q_last"], -aux["root_q_last"])
+    unf = sample.weight == 0.5
+    want = torch.where(aux["player"] == 0, z_red[None, :], -z_red[None, :])
+    torch.testing.assert_close(sample.value[unf], want[unf], rtol=0, atol=1e-6)
+
+
+def test_unknown_search_raises():
     with pytest.raises(ValueError, match="search"):
         tsp.selfplay_chunk(None, tbit.bit_reset(N, 2, "cpu"), torch.Generator(),
                            board_size=N, num_steps=1, num_simulations=2, search="beam")
@@ -415,4 +574,5 @@ def test_ground_truth_signs():
 
 if __name__ == "__main__":
     FIXTURE.write_text(json.dumps(jax_record(), indent=1) + "\n")
+    ARMS_FIXTURE.write_text(json.dumps(jax_arms_record(), indent=1) + "\n")
     print(FIXTURE.read_text()[:2000])

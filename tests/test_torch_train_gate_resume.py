@@ -12,8 +12,10 @@ budget with ``--cpu``; one test runs the module as a program.  Pinned:
   * a checkpoint directory without best_meta.json re-gates its best;
   * the gates' initial net is a copy that training leaves unchanged;
   * ``--smoke`` runs to its ``done`` record;
-  * the flag checks: no card, ``--mesh``, the unported searches, the
-    Dirichlet flags with Gumbel.
+  * ``--search=gumbel`` and ``--search=puct_reuse`` reach self-play and
+    ``--arena_search=gumbel`` every gate, and such a run resumes;
+  * the flag checks: no card, ``--mesh``, an unknown search, the Dirichlet
+    flags with Gumbel.
 """
 
 import json
@@ -153,11 +155,59 @@ def test_smoke_run_ends_with_done(tmp_path):
     assert out["net"].board_size == 5 and out["net"].channels == 16
 
 
+def spy_searches(monkeypatch):
+    """Records the ``search`` of every self-play chunk and arena match the
+    driver runs."""
+    seen = {"selfplay": [], "arena": []}
+    real_chunk, real_match = tg.selfplay_chunk, tg.arena_match
+
+    def chunk(*args, **kw):
+        seen["selfplay"].append(kw["search"])
+        return real_chunk(*args, **kw)
+
+    def match(*args, **kw):
+        seen["arena"].append(kw["search"])
+        return real_match(*args, **kw)
+
+    monkeypatch.setattr(tg, "selfplay_chunk", chunk)
+    monkeypatch.setattr(tg, "arena_match", match)
+    return seen
+
+
+@pytest.mark.parametrize("search,arena_search", [
+    ("gumbel", "puct"), ("puct_reuse", "puct"), ("puct", "gumbel")])
+def test_search_arms_run(search, arena_search, monkeypatch, tmp_path):
+    seen = spy_searches(monkeypatch)
+    out, recs = run_gate(tmp_path / "ckpt", tmp_path / "a.jsonl",
+                         ["--iterations=2", "--gates=2", f"--search={search}",
+                          f"--arena_search={arena_search}"])
+    assert kinds_in_order(recs) == ["train", "gate_vs_init", "best", "gate_vs_random", "done"]
+    assert seen == {"selfplay": [search] * 2, "arena": [arena_search] * 2}
+    assert all(0.0 <= r["a_score"] <= 1.0 for r in recs if r["kind"].startswith("gate"))
+    assert serialization.restore_training(str(tmp_path / "ckpt"), "cpu")[2] == 2
+
+
+def test_reuse_with_gumbel_gates_resumes(monkeypatch, tmp_path):
+    """``--search=puct_reuse --arena_search=gumbel``: a run, then ``--resume``
+    with the same searches, restoring the best record."""
+    seen = spy_searches(monkeypatch)
+    flags = ["--search=puct_reuse", "--arena_search=gumbel"]
+    _, first = run_gate(tmp_path / "ckpt", tmp_path / "a.jsonl",
+                        ["--iterations=2", "--gates=1,2", *flags])
+    out, recs = run_gate(tmp_path / "ckpt", tmp_path / "b.jsonl",
+                         ["--iterations=3", "--gates=3", "--resume", *flags])
+    best = next(r for r in first if r["kind"] == "best")
+    resume = next(r for r in recs if r["kind"] == "resume")
+    assert (resume["from_iteration"], resume["best_iteration"]) == (2, best["iteration"])
+    assert resume["best_score"] == pytest.approx(best["a_score"])
+    assert out["start_iteration"] == 3 and recs[-1]["kind"] == "done"
+    assert seen["selfplay"] == ["puct_reuse"] * 3 and set(seen["arena"]) == {"gumbel"}
+    assert len(seen["arena"]) == 5  # two gates and vs-random, then one gate and vs-random
+
+
 @pytest.mark.parametrize("flags,code,message", [
     (["--mesh=2"], 2, "item 6"),
-    (["--search=gumbel"], 2, "item 4"),
-    (["--arena_search=gumbel"], 2, "item 4"),
-    (["--search=puct_reuse"], 2, "item 5"),
+    (["--search=beam"], 2, "invalid choice"),
     (["--search=gumbel", "--dirichlet_alpha=0.02"], 2, "no effect with"),
     (["--search=gumbel", "--dirichlet_frac=0.25"], 2, "no effect with"),
     ([], 1, "no CUDA device"),

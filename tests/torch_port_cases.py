@@ -3,18 +3,21 @@
 Seeded net parameters and observations for the net pins; the torch twins
 of the evaluators in ``tests/test_mcts_exact.py`` (the same float32
 operations, so both sides compute the same bits); a table net for the
-deterministic arena; and the deterministic self-play chunk with its JSON
-record.  ``chip_smoke.py`` uses them on the card, where jax is
+deterministic arena; the deterministic self-play chunks (PUCT, and the
+reuse and Gumbel arms) with their JSON record; and a check that every arena
+move is legal.  ``chip_smoke.py`` uses them on the card, where jax is
 not installed, so this module imports torch, numpy and the port only.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 
 import numpy as np
 import torch
 
+from twixt_for_open_spiel_tpu_torch.models import arena, mcts
 from twixt_for_open_spiel_tpu_torch.models.network import AZNet
 from twixt_for_open_spiel_tpu_torch.models.selfplay import selfplay_chunk
 from twixt_for_open_spiel_tpu_torch.ops import bitboard, state, step
@@ -119,6 +122,57 @@ def scenario_roots(scenarios, board_size: int, device):
     return bitboard.from_state(state.State(*[torch.stack(xs, -1) for xs in zip(*envs)]))
 
 
+def gumbel_case_noise(num_simulations: int, max_considered: int, envs: int) -> np.ndarray:
+    """The injected Gumbels of a case of ``tests/test_gumbel_exact.py``
+    (float32 [envs, 25], numpy-seeded from the case)."""
+    rng = np.random.RandomState(1234 + num_simulations * 31 + max_considered)
+    return rng.gumbel(size=(envs, 25)).astype(np.float32)
+
+
+def next_actions(visits: np.ndarray, legal: np.ndarray, move: int) -> np.ndarray:
+    """The moves of ``tests/test_reuse_exact.py``'s sequences: the visit
+    argmax, and at every third move the lowest legal action without
+    visits (an action with no child, so a cold start)."""
+    actions = visits.argmax(-1)
+    if move % 3 == 2:
+        for i in range(len(actions)):
+            zero = np.flatnonzero(legal[i] & (visits[i] == 0))
+            if zero.size:
+                actions[i] = zero[0]
+    return actions
+
+
+def reuse_sequence(device, scenarios, board_size: int, num_simulations: int, reuse_cap: int,
+                   kind: str, backup: str, moves: int) -> list:
+    """``search_batch_reuse`` along a sequence of :func:`next_actions` from
+    the scenario roots, with finished games auto-reset and no root noise:
+    per move, (root visits [B, A] with the inherited ones, root_q, stats,
+    the actions played), numpy on the host."""
+    n = board_size
+    bs = scenario_roots(scenarios, n, device)
+    nb = bs.current_player.shape[0]
+    tree = mcts.init_reuse_tree(bs, board_size=n, num_simulations=num_simulations,
+                                reuse_cap=reuse_cap, backup=backup)
+    played = torch.full((nb,), -1, dtype=torch.int32, device=device)
+    done = torch.ones(nb, dtype=torch.bool, device=device)
+    out = []
+    for move in range(moves):
+        probs, root_q, tree, stats = mcts.search_batch_reuse(
+            None, bs, torch.Generator(device=device).manual_seed(move), tree, played, done,
+            evaluator=EVALUATORS[kind](n * n), board_size=n, num_simulations=num_simulations,
+            reuse_cap=reuse_cap, dirichlet_frac=0.0, backup=backup, return_stats=True)
+        legal = bitboard.bit_legal_mask_flat(bs, bs.current_player.clamp(0, 1), n).T
+        visits = torch.where(legal, mcts._root_visits(tree), 0)
+        if not torch.equal(probs, visits.float() / visits.sum(-1, keepdim=True).float()):
+            raise AssertionError(f"visit_probs are not the root visits' shares at move {move}")
+        visits, legal = visits.long().cpu().numpy(), legal.cpu().numpy()
+        actions = next_actions(visits, legal, move)
+        out.append((visits, root_q.cpu().numpy(), stats, actions))
+        played = torch.from_numpy(actions).int().to(device)
+        bs, done, _ = bitboard.bit_step_auto_reset(bs, played, n)
+    return out
+
+
 # The deterministic self-play chunk of the port's pins and ``chip_smoke.py``:
 # the table net below, greedy plies (``temp_moves=0``) and no root noise,
 # from roots part-way through random games (the bitboard rollout, which is
@@ -155,6 +209,61 @@ def deterministic_chunk(device, value_bootstrap: float = 0.0, debug_trace: bool 
         board_size=n, num_steps=CHUNK["num_steps"],
         num_simulations=CHUNK["num_simulations"], temp_moves=0, dirichlet_frac=0.0,
         value_bootstrap=value_bootstrap, debug_trace=debug_trace)
+
+
+# The other search arms' deterministic chunks, on the same roots and table
+# net with the value bootstrap (which reads the searches' root values):
+# ``puct_reuse`` greedy without root noise, ``gumbel`` with zero Gumbels.
+ARMS = ("puct_reuse", "gumbel")
+ARM_BOOTSTRAP = 0.5
+
+
+@contextlib.contextmanager
+def zero_gumbels():
+    """Gumbel searches inside the block draw zeros for their Gumbels."""
+    real = mcts._draw_gumbel
+    mcts._draw_gumbel = lambda generator, shape, device: torch.zeros(shape, device=device)
+    try:
+        yield
+    finally:
+        mcts._draw_gumbel = real
+
+
+def arm_chunk(device, search: str):
+    """The ``search`` arm's deterministic chunk on ``device``: (final
+    BitState, Sample, aux)."""
+    n = CHUNK["board_size"]
+    with zero_gumbels():
+        return selfplay_chunk(
+            arena_table_params(n * n, 0, device), chunk_roots(device),
+            torch.Generator(device=device).manual_seed(0), net_apply=chunk_table_net,
+            board_size=n, num_steps=CHUNK["num_steps"],
+            num_simulations=CHUNK["num_simulations"], temp_moves=0, dirichlet_frac=0.0,
+            search=search, value_bootstrap=ARM_BOOTSTRAP, debug_trace=True)
+
+
+@contextlib.contextmanager
+def checked_moves():
+    """Inside the block every move the arena plays is checked against the
+    legal mask of the state it is played in (frozen envs play on a reset
+    board, which has legal moves too); yields ``{"moves", "illegal",
+    "actions"}``, the last a list of each ply's actions."""
+    counts = {"moves": 0, "illegal": 0, "actions": []}
+    real = arena.step_bits
+
+    def step(bs, n, action):
+        legal = bitboard.bit_legal_mask_flat(bs, bs.current_player.clamp(0, 1), n).T
+        ok = legal[torch.arange(action.shape[0], device=action.device), action.long()]
+        counts["moves"] += int(ok.numel())
+        counts["illegal"] += int((~ok).sum())
+        counts["actions"].append(action.clone())
+        return real(bs, n, action)
+
+    arena.step_bits = step
+    try:
+        yield counts
+    finally:
+        arena.step_bits = real
 
 
 def sample_record(final, sample, aux=None) -> dict:

@@ -6,7 +6,9 @@ one array-of-trees search per move for every board at once.  Both sides
 share that search: the leaf evaluator holds both nets and picks per env by
 whose turn it is at the leaf (colours alternate by env, so first-move
 advantage cancels).  The first ``temp_moves`` plies are sampled from the
-visit distribution, later ones are the argmax; no Dirichlet noise.
+visit distribution (or Gumbel's improved policy), later ones are the
+argmax; no Dirichlet noise.  ``arena_match_asym`` pits one net's Gumbel
+search against its PUCT search.
 
 Randomness (the sampled plies, the random bot's draws, the search's
 generator use) comes from one ``torch.Generator``; it agrees with JAX's
@@ -77,32 +79,39 @@ def arena_match(params_a, params_b, generator, *, board_size: int, batch: int,
     """Play ``batch`` lockstep games of A vs B; returns the tally.
 
     Colours alternate by env (A is red in even envs).  Each move runs one
-    batched PUCT search over every board with the dual-net evaluator;
-    finished boards are frozen (their slot searches a reset state and the
-    step is discarded).  With ``random_b`` side B plays uniform random
-    legal moves instead.  ``generator`` is a ``torch.Generator`` on
-    ``device``; ``net_apply(params, obs)`` runs a side's net (by default
-    the params are a torch ``AZNet``).  The host reads ``any(open)`` once a
-    move.
+    batched search over every board with the dual-net evaluator; finished
+    boards are frozen (their slot searches a reset state and the step is
+    discarded).  ``search="puct"`` plays from the visit counts,
+    ``"gumbel"`` from Gumbel's improved policy (evaluation mode: the
+    Gumbels only pick the candidates inside the search).  With ``reuse_a``
+    (PUCT only) the game's tree is carried from ply to ply and re-rooted on
+    the move played, but only A's moves inherit it; B's start cold, so both
+    sides spend the same simulations and differ only in reuse.  With
+    ``random_b`` side B plays uniform random legal moves instead.
+    ``generator`` is a ``torch.Generator`` on ``device``; ``net_apply(params,
+    obs)`` runs a side's net (by default the params are a torch ``AZNet``).
+    The host reads ``any(open)`` once a move.
 
     Returns ``{"a_wins", "b_wins", "draws", "games", "moves", "a_score"}``
     as Python numbers (``a_score`` counts draws half) and ``"final_state"``,
     the boards at the end.
     """
-    if search == "gumbel":
-        raise NotImplementedError(
-            "search='gumbel' comes with gumbel_search_batch (ROADMAP Queue 1, item 7)")
-    if search != "puct":
+    if search not in ("puct", "gumbel"):
         raise ValueError(f"search must be 'puct' or 'gumbel', not {search!r}")
-    if reuse_a:
-        raise NotImplementedError(
-            "reuse_a comes with search_batch_reuse, tree reuse (ROADMAP Queue 1, item 7)")
+    if reuse_a and search == "gumbel":
+        raise ValueError("reuse_a is PUCT-only")
     n = board_size
     a_is_red = (torch.arange(batch, device=device) % 2) == 0
     bs = bit_reset(n, batch, device)
     dummy = bit_reset(n, batch, device)
     evaluator = _dual_net_evaluator(net_apply, n)
+    params = (params_a, params_b, a_is_red)
+    kw = dict(evaluator=evaluator, board_size=n, num_simulations=num_simulations,
+              c_puct=c_puct)
     env = torch.arange(batch, dtype=torch.int64, device=device)
+    if reuse_a:
+        tree = mcts.init_reuse_tree(bs, board_size=n, num_simulations=num_simulations)
+        played = torch.full((batch,), -1, dtype=torch.int32, device=device)
     max_moves = n * n - 3 + 1  # MaxGameLength + 1 safety bound (twixt.h:136-139)
     move = 0
     while move < max_moves:
@@ -111,23 +120,79 @@ def arena_match(params_a, params_b, generator, *, board_size: int, batch: int,
             break
         safe = _select(open_, bs, dummy)
         player = safe.current_player.clamp(0, 1)
-        probs, _ = mcts.search_batch(
-            (params_a, params_b, a_is_red), safe, generator,
-            evaluator=evaluator, board_size=n, num_simulations=num_simulations,
-            c_puct=c_puct, dirichlet_frac=0.0,
-        )
-        legal = bit_legal_mask_flat(safe, player, n).T
-        if move < temp_moves:
-            logits = torch.where(legal, torch.log(probs.clamp_min(1e-9)), -torch.inf)
-            action = _categorical(generator, logits)
+        if reuse_a:
+            a_to_move = (player == 0) == a_is_red
+            probs, _, tree = mcts.search_batch_reuse(
+                params, safe, generator, tree, played, ~(a_to_move & open_),
+                dirichlet_frac=0.0, **kw)
+        elif search == "gumbel":
+            _, probs, _ = mcts.gumbel_search_batch(params, safe, generator, **kw)
         else:
-            action = torch.where(legal, probs, -1.0).argmax(-1)
+            probs, _ = mcts.search_batch(params, safe, generator, dirichlet_frac=0.0, **kw)
+        action = _play(generator, probs, bit_legal_mask_flat(safe, player, n).T,
+                       move < temp_moves)
         if random_b:
             b_to_move = (player == 0) != a_is_red
             seed = torch.randint(0, 1 << 32, (), generator=generator,
                                  device=device, dtype=torch.int64)
             noise = (seed + _mul_u32(env, 0x9E3779B9)) & 0xFFFFFFFF
             action = torch.where(b_to_move, sample_bits(safe, n, noise), action)
+        bs = _select(open_, step_bits(safe, n, action), bs)
+        if reuse_a:
+            played = action.to(torch.int32)
+        move += 1
+    return {**_tally(bs.result, a_is_red, batch, move), "final_state": bs}
+
+
+def _play(generator, probs, legal, sample: bool):
+    """A draw from ``probs`` masked to ``legal``, or its argmax (the first
+    maximum), per env."""
+    if sample:
+        logits = torch.where(legal, torch.log(probs.clamp_min(1e-9)), -torch.inf)
+        return _categorical(generator, logits)
+    return torch.where(legal, probs, -1.0).argmax(-1)
+
+
+@torch.no_grad()
+def arena_match_asym(params, generator, *, board_size: int, batch: int, sims_a: int,
+                     sims_b: int, net_apply=call_net, temp_moves: int = 6,
+                     c_puct: float = 1.4, greedy_a: bool = True,
+                     max_considered_a: int = 16, device="cuda"):
+    """One net, two searches: side A plays Gumbel sequential halving at
+    ``sims_a`` simulations, side B PUCT without Dirichlet noise at
+    ``sims_b`` (JAX's ``arena_match_asym``).
+
+    Colours alternate by env (A is red in even envs).  Both searches run on
+    the whole batch every ply and each env takes the move of the side to
+    move.  With ``greedy_a`` A plays the argmax of the improved policy
+    (evaluation mode), else the surviving candidate; B samples its first
+    ``temp_moves`` plies from the visit counts and plays the argmax after.
+    Returns the tally of :func:`arena_match`, ``"final_state"`` included.
+    """
+    n = board_size
+    a_is_red = (torch.arange(batch, device=device) % 2) == 0
+    bs = bit_reset(n, batch, device)
+    dummy = bit_reset(n, batch, device)
+    evaluator = mcts.net_evaluator(net_apply, n)
+    kw = dict(evaluator=evaluator, board_size=n, c_puct=c_puct)
+    max_moves = n * n - 3 + 1  # MaxGameLength + 1 safety bound (twixt.h:136-139)
+    move = 0
+    while move < max_moves:
+        open_ = bs.result == geo.RESULT_OPEN
+        if not bool(open_.any()):
+            break
+        safe = _select(open_, bs, dummy)
+        player = safe.current_player.clamp(0, 1)
+        a_to_move = (player == 0) == a_is_red
+        cand_a, improved_a, _ = mcts.gumbel_search_batch(
+            params, safe, generator, num_simulations=sims_a,
+            max_considered=max_considered_a, **kw)
+        act_a = improved_a.argmax(-1) if greedy_a else cand_a
+        probs, _ = mcts.search_batch(params, safe, generator, num_simulations=sims_b,
+                                     dirichlet_frac=0.0, **kw)
+        act_b = _play(generator, probs, bit_legal_mask_flat(safe, player, n).T,
+                      move < temp_moves)
+        action = torch.where(a_to_move, act_a, act_b)
         bs = _select(open_, step_bits(safe, n, action), bs)
         move += 1
     return {**_tally(bs.result, a_is_red, batch, move), "final_state": bs}

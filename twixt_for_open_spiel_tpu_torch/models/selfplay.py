@@ -1,21 +1,23 @@
 """AlphaZero self-play and the learner step
-(``twixt_for_open_spiel_tpu/models/selfplay.py``), PUCT arms.
+(``twixt_for_open_spiel_tpu/models/selfplay.py``).
 
   * ``selfplay_chunk``: T lockstep env steps over a [B] batch on the
-    bitboard engine, each action from one batched PUCT search
-    (``models/mcts.py``); emits the training tuple (packed obs wire, visit
-    policy, outcome) with a backward pass giving each position the final
-    result of its episode (auto-reset keeps envs dense);
+    bitboard engine, each action from one batched search
+    (``models/mcts.py``: PUCT, PUCT with tree reuse, or Gumbel); emits the
+    training tuple (packed obs wire, search policy, outcome) with a
+    backward pass giving each position the final result of its episode
+    (auto-reset keeps envs dense);
   * ``train_step``: legal-set policy cross-entropy plus outcome-weighted
     value MSE on the chunk, global-norm clip, then AdamW, in place on the
     module and its optimizer.
 
 The JAX chunk is one ``lax.scan``; here it is a host loop over the steps
 under ``torch.no_grad``, and the backward outcome scan a reversed loop.
-Randomness (the search's root noise, the sampled plies) comes from one
-``torch.Generator``; it agrees with JAX's draws in distribution.  With
-``temp_moves=0`` and ``dirichlet_frac=0`` a chunk is deterministic and
-emits JAX's chunk bit for bit (``tests/test_torch_selfplay.py``).
+Randomness (the search's root noise or Gumbels, the sampled plies) comes
+from one ``torch.Generator``; it agrees with JAX's draws in distribution.
+With ``temp_moves=0`` and ``dirichlet_frac=0`` a PUCT chunk (with or
+without reuse) is deterministic and emits JAX's chunk bit for bit, and so
+does a Gumbel chunk with zero Gumbels (``tests/test_torch_selfplay.py``).
 """
 
 from __future__ import annotations
@@ -63,17 +65,29 @@ class Sample(NamedTuple):
 def selfplay_chunk(params, bs: BitState, generator, *, board_size: int,
                    num_steps: int, num_simulations: int, net_apply=call_net,
                    temperature: float = 1.0, temp_moves: int = 10 ** 9,
-                   search: str = "puct", dirichlet_alpha: float | None = None,
-                   dirichlet_frac: float = 0.25, value_bootstrap: float = 0.0,
-                   debug_trace: bool = False):
+                   search: str = "puct", reuse_cap: int | None = None,
+                   dirichlet_alpha: float | None = None, dirichlet_frac: float = 0.25,
+                   value_bootstrap: float = 0.0, debug_trace: bool = False):
     """Run ``num_steps`` search-driven lockstep steps; returns
     (final_bitstate, Sample), with ``debug_trace`` also an aux dict.
 
     ``bs`` is a 1-D env batch in the engine's trailing layout; the Sample is
-    time-major.  Each step runs ``search_batch`` with Dirichlet root noise
-    (``dirichlet_alpha`` None means 0.3) and plays a draw from the visit
-    counts at ``temperature``, masked to the legal set, or their argmax
-    (the first maximum) once an env's move counter reaches ``temp_moves``.
+    time-major.  ``search`` picks the move generator:
+
+      * ``"puct"``: ``search_batch`` with Dirichlet root noise
+        (``dirichlet_alpha`` None means 0.3); the move is a draw from the
+        visit counts at ``temperature``, masked to the legal set, or their
+        argmax (the first maximum) once an env's move counter reaches
+        ``temp_moves``; the target is the visit distribution;
+      * ``"puct_reuse"``: the same with ``search_batch_reuse``, the tree
+        carried from ply to ply and re-rooted on the move played (envs that
+        auto-reset start cold; the carry is seeded again at each chunk, so
+        a chunk's first ply is cold); ``reuse_cap`` bounds the survivor
+        slots (default ``num_simulations + 1``);
+      * ``"gumbel"``: ``gumbel_search_batch``; the surviving candidate is
+        played (the Gumbels are the exploration; temperature and the
+        Dirichlet flags play no part) and the improved policy is the target.
+
     ``generator`` is a ``torch.Generator`` on the states' device;
     ``net_apply(params, obs)`` runs the net (by default ``params`` is a
     torch ``AZNet``).
@@ -87,17 +101,8 @@ def selfplay_chunk(params, bs: BitState, generator, *, board_size: int,
     last mover's perspective), as JAX's does, and ``{"actions"}`` (each
     frame's action, int32 [T, B]; the port's addition, for replaying the
     chunk's states).
-
-    ``search="gumbel"`` and ``"puct_reuse"`` are not ported yet.
     """
-    if search == "gumbel":
-        raise NotImplementedError(
-            "search='gumbel' comes with gumbel_search_batch (ROADMAP Queue 1, item 4)")
-    if search == "puct_reuse":
-        raise NotImplementedError(
-            "search='puct_reuse' comes with search_batch_reuse, tree reuse "
-            "(ROADMAP Queue 1, item 5)")
-    if search != "puct":
+    if search not in ("puct", "puct_reuse", "gumbel"):
         raise ValueError(f"search must be 'puct', 'puct_reuse' or 'gumbel', not {search!r}")
     if dirichlet_alpha is None:
         dirichlet_alpha = 0.3
@@ -107,24 +112,40 @@ def selfplay_chunk(params, bs: BitState, generator, *, board_size: int,
 
     n = board_size
     evaluator = mcts.net_evaluator(net_apply, n)
+    kw = dict(evaluator=evaluator, board_size=n, num_simulations=num_simulations)
+    noise = dict(dirichlet_alpha=dirichlet_alpha, dirichlet_frac=dirichlet_frac)
+    if search == "puct_reuse":
+        batch = bs.current_player.shape[-1]
+        tree = mcts.init_reuse_tree(bs, board_size=n, num_simulations=num_simulations,
+                                     reuse_cap=reuse_cap)
+        last = torch.full((batch,), -1, dtype=torch.int32, device=bs.red.device)
+        last_done = torch.ones(batch, dtype=torch.bool, device=bs.red.device)
     obs, policy, player, played, done, result = [], [], [], [], [], []
     root_q = None
     for _ in range(num_steps):
         obs.append(bit_observation_packed_with_legal(bs, n))
         mover = bs.current_player.clamp(0, 1)
-        probs, root_q = mcts.search_batch(
-            params, bs, generator, evaluator=evaluator, board_size=n,
-            num_simulations=num_simulations, dirichlet_alpha=dirichlet_alpha,
-            dirichlet_frac=dirichlet_frac)
-        # temperature draw over the visit counts; illegal actions carry no
-        # visits, but are masked explicitly
-        legal = bit_legal_mask_flat(bs, mover, n).T                 # [B, A]
-        logits = torch.where(legal, torch.log(probs.clamp_min(1e-9)) / temperature,
-                             -torch.inf)
-        sampled = _categorical(generator, logits)
-        greedy = torch.where(legal, probs, -1.0).argmax(-1)
-        actions = torch.where(bs.move_counter < temp_moves, sampled, greedy).to(torch.int32)
+        if search == "gumbel":
+            actions, probs, root_q = mcts.gumbel_search_batch(params, bs, generator, **kw)
+        else:
+            if search == "puct_reuse":
+                probs, root_q, tree = mcts.search_batch_reuse(
+                    params, bs, generator, tree, last, last_done, reuse_cap=reuse_cap,
+                    **kw, **noise)
+            else:
+                probs, root_q = mcts.search_batch(params, bs, generator, **kw, **noise)
+            # temperature draw over the visit counts; illegal actions carry
+            # no visits, but are masked explicitly
+            legal = bit_legal_mask_flat(bs, mover, n).T             # [B, A]
+            logits = torch.where(legal, torch.log(probs.clamp_min(1e-9)) / temperature,
+                                 -torch.inf)
+            sampled = _categorical(generator, logits)
+            greedy = torch.where(legal, probs, -1.0).argmax(-1)
+            actions = torch.where(bs.move_counter < temp_moves, sampled, greedy)
+        actions = actions.to(torch.int32)
         bs, step_done, step_result = bit_step_auto_reset(bs, actions, n)
+        if search == "puct_reuse":
+            last, last_done = actions, step_done
         policy.append(probs)
         player.append(mover)
         played.append(actions)

@@ -17,11 +17,12 @@ The flags, their defaults and the JSONL records (``train``,
 ``done``) are the JAX script's, so logs compare with ``docs/runs/*.jsonl``;
 checkpoints keep its layout (``utils/serialization.py``; ``best/`` and
 ``best_meta.json`` beside the latest).  It runs on the card; ``--cpu`` runs
-the same arguments on the CPU, ``--smoke`` a tiny budget there.  Not
-ported yet: ``--mesh`` (ROADMAP Queue 1, item 6) and the searches other
-than PUCT (items 4 and 5).  ``--dirichlet_frac`` defaults to None and
-means 0.25, so that any explicit Dirichlet flag with ``--search=gumbel``
-is refused.
+the same arguments on the CPU, ``--smoke`` a tiny budget there.
+``--search`` picks self-play's search (PUCT, PUCT with tree reuse,
+Gumbel), ``--arena_search`` the gates' (PUCT or Gumbel).  Not ported yet:
+``--mesh`` (ROADMAP Queue 1, item 6).  ``--dirichlet_frac`` defaults to
+None and means 0.25, so that any explicit Dirichlet flag with
+``--search=gumbel`` is refused.
 
 Randomness comes from one ``torch.Generator`` seeded from ``--seed``; a
 resumed run re-seeds it from (seed, first iteration), as the JAX script
@@ -63,7 +64,7 @@ def parse_args(argv=None):
     ap.add_argument("--temp_moves", type=int, default=12,
                     help="opening plies with temperature sampling; greedy after")
     ap.add_argument("--search", default="puct", choices=["puct", "puct_reuse", "gumbel"],
-                    help="self-play move generator; only puct is ported")
+                    help="self-play move generator")
     ap.add_argument("--channels", type=int, default=64)
     ap.add_argument("--blocks", type=int, default=4)
     ap.add_argument("--lr", type=float, default=1e-3)
@@ -81,7 +82,7 @@ def parse_args(argv=None):
     ap.add_argument("--arena_batch", type=int, default=256)
     ap.add_argument("--arena_sims", type=int, default=64)
     ap.add_argument("--arena_search", default="puct", choices=["puct", "gumbel"],
-                    help="gate search; only puct is ported")
+                    help="gate search: gumbel@16 is the cheap gate of big-board runs")
     ap.add_argument("--gates", default="100,200,300,400,500,600,700,800,900,1000",
                     help="comma-separated iterations at which to arena-gate")
     ap.add_argument("--mesh", type=int, default=0,
@@ -106,11 +107,6 @@ def parse_args(argv=None):
         ap.error("--dirichlet_alpha/--dirichlet_frac have no effect with --search=gumbel "
                  "(Gumbel explores via its own root perturbation); drop the flags or use "
                  "--search=puct")
-    if args.search == "gumbel" or args.arena_search == "gumbel":
-        ap.error("Gumbel search is not ported yet (ROADMAP Queue 1, item 4); use puct")
-    if args.search == "puct_reuse":
-        ap.error("--search=puct_reuse needs tree reuse, not ported yet "
-                 "(ROADMAP Queue 1, item 5); use puct")
     if args.dirichlet_frac is None:
         args.dirichlet_frac = 0.25
     if args.smoke:
@@ -160,7 +156,8 @@ def _train(args, emit) -> dict:
     gates = sorted(int(g) for g in args.gates.split(",") if g)
     print(f"[train] device={device} n={n} batch={args.batch} chunk={args.chunk_steps} "
           f"sims={args.simulations} net={args.channels}x{args.blocks} "
-          f"iters={args.iterations} search={args.search} gates={gates}", file=sys.stderr)
+          f"iters={args.iterations} search={args.search} arena_search={args.arena_search} "
+          f"gates={gates}", file=sys.stderr)
     net = init_params(create_net(n, channels=args.channels, blocks=args.blocks,
                                  device="cpu"), args.seed).to(device)
     init_net = _snapshot(net)
@@ -170,7 +167,8 @@ def _train(args, emit) -> dict:
     def gate(candidate, it):
         t0 = time.perf_counter()
         tally = arena_match(candidate, init_net, gen, board_size=n, batch=args.arena_batch,
-                            num_simulations=args.arena_sims, device=device)
+                            num_simulations=args.arena_sims, search=args.arena_search,
+                            device=device)
         emit({"kind": "gate_vs_init", "iteration": it,
               **{k: float(tally[k]) for k in ("a_score", "a_wins", "b_wins", "draws", "games")},
               "secs": round(time.perf_counter() - t0, 1)})
@@ -254,7 +252,8 @@ def _train(args, emit) -> dict:
     emit({"kind": "best", "iteration": best_it, "a_score": best_score})
     t0 = time.perf_counter()
     tally = arena_match(best_net, best_net, gen, board_size=n, batch=args.arena_batch,
-                        num_simulations=args.arena_sims, random_b=True, device=device)
+                        num_simulations=args.arena_sims, random_b=True,
+                        search=args.arena_search, device=device)
     emit({"kind": "gate_vs_random", "iteration": best_it,
           **{k: float(tally[k]) for k in ("a_score", "a_wins", "b_wins", "draws", "games")},
           "secs": round(time.perf_counter() - t0, 1)})
