@@ -141,6 +141,41 @@ non-zero exit.
       gates at 2 and 3): ``--search=puct_reuse --arena_search=gumbel`` and
       ``--search=gumbel``; the record kinds in order and the checkpoints.
 
+  the distributed learner (``parallel/``; K1 on every rank, collectives
+  from the library):
+  26. two ranks spawned on the card, over a gloo group made here (NCCL
+      refuses two ranks on one device): (a) ``make_sharded_bit_rollout``
+      at the headline (n=8, global B=4096, 1000 steps, 2048 envs a rank):
+      K1 launched on each rank (its count set to 0 in the rank just
+      before), each rank's shard and the reduced counters bit-equal to
+      the plain version on that shard with that rank's seed and to
+      ``tests/fixtures/torch_port_sharded_rollout.json``; each rank's K1
+      ms and the global env-steps/s beside phase 5's one process; (b)
+      ``make_distributed_train_step`` on ``tests/test_sharding.py``'s case
+      (board 5, a 16x1 float32 net with TF32 off, half the envs' weights
+      zeroed, SGD 0.1, microbatch 1 and 3) against the local
+      ``train_step`` on the whole sample (parameters rtol 2e-5 / atol
+      1e-6, metrics rtol 2e-5), the ranks' parameters bitwise equal; (c)
+      the deterministic chunk split over the ranks against
+      ``torch_port_selfplay.json``; (d) the learn check of
+      ``test_dist_training_improves_gate`` (24 iterations at board 5 from
+      JAX's initial net, ``tests/fixtures/torch_port_learn_init.npz``, then
+      32 games against it, the bar 0.6, JAX's).  (a) runs in
+      a spawn of its own with nothing else on the card; (b)-(d) in a
+      second, beside phase 27's programs.  A learn check below the bar
+      fails the run after the kernels line, so that the other phases
+      report first;
+  27. a world of one over NCCL in this process at config-5 width (the
+      chunk cut to 16 plies, from roots part-way through random games so
+      that episodes end in it): one ``make_distributed_selfplay`` chunk
+      (moves/s, s a ply, peak memory, phase 18's invariants against the
+      wire's legal plane), ``make_distributed_train_step`` on its 8,192
+      frames in turns with the local ``train_step`` (medians of 5; the
+      first steps' metrics equal within rtol 2e-5), the gradients'
+      all-reduce alone by CUDA events; and, run beside phase 26 (b)-(d),
+      the driver as a program with ``--mesh=1`` at phase 19's cut and its
+      ``--resume``, and ``examples.selfplay_train`` for two iterations.
+
 The net, search, arena, self-play, train and driver lines with a time end
 with the card's name and power limit (printed alone first).  The total
 time is printed before the two JSON lines.  The
@@ -149,24 +184,30 @@ as entries of their own), each with
 its time, its plain version's time and its bound (the least time the card
 could take: bytes over 3.35 TB/s or the SASS-counted instructions over
 the issue rates, the larger); the last is ``{"ok": true, "device": {...}}``.  Without a CUDA
-device the script exits non-zero and prints no result.  It imports no jax.
+device, or when a check fails, the script exits non-zero and prints no
+``{"ok": true}`` line.  It imports no jax.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
-import importlib.util
+import copy
 import json
+import math
 import os
 import pathlib
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
+import torch.distributed as dist
 
+from twixt_for_open_spiel_tpu_torch import parallel
 from twixt_for_open_spiel_tpu_torch.models import arena, convert, mcts, selfplay
 from twixt_for_open_spiel_tpu_torch.models.network import call_net, create_net
 from twixt_for_open_spiel_tpu_torch.ops import _cuda, _sass
@@ -184,13 +225,13 @@ ROOT = pathlib.Path(__file__).resolve().parent
 
 
 def _load_cases():
-    """``tests/torch_port_cases.py`` by its path: the card's machine may hold
-    another package named ``tests``."""
-    path = ROOT / "tests" / "torch_port_cases.py"
-    spec = importlib.util.spec_from_file_location("torch_port_cases", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+    """``tests/torch_port_cases.py`` as the top-level module
+    ``torch_port_cases``: the card's machine may hold another package named
+    ``tests``, and phase 26's spawned ranks, which start with this
+    process's ``sys.path``, import the cases they run by that name."""
+    sys.path.append(str(ROOT / "tests"))
+    import torch_port_cases
+    return torch_port_cases
 
 
 cases = _load_cases()
@@ -301,6 +342,20 @@ ARM_CHUNK_STEPS = 16
 # cut to 8 (the JAX script's default is 16) for the time limit
 ASYM_SIMS = (8, 16)
 DRIVER_ARMS = (["--search=puct_reuse", "--arena_search=gumbel"], ["--search=gumbel"])
+
+# --- the distributed learner (parallel/) -------------------------------------
+SHARDED_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_sharded_rollout.json"
+SHARED_RANKS = 2  # ranks sharing the card over gloo (phase 26)
+SHARDED_REPS = 3
+# tests/test_sharding.py::test_dist_train_step_matches_local's case: board,
+# batch, plies, simulations, channels, blocks; SGD 0.1; microbatch 1 and 3
+DIST_TRAIN = (5, 16, 6, 4, 16, 1)
+DIST_TRAIN_TOL = {"rtol": 2e-5, "atol": 1e-6}
+DIST_METRICS = ("loss", "policy_loss", "value_loss", "train_frames")
+# phase 27: config 5 (SELFPLAY_ROW) with the chunk cut from 32 to 16 plies
+DIST_CHUNK_STEPS = 16
+DIST_ROOT_STEPS = 160  # random plies before the chunk, so that its episodes end
+ALLREDUCE_REPS = 20
 
 
 def require(ok: bool, what: str) -> None:
@@ -1551,6 +1606,295 @@ def driver_arms(dev, card: str):
                     proc.wait()
 
 
+def sharded_train_case(dev):
+    """Phase 26 (b)'s inputs: the seeded float32 net's flax parameters and a
+    chunk it played on the card, half the envs' weights zeroed."""
+    n, b, t, sims, ch, blocks = DIST_TRAIN
+    tree = convert.params_to_flax(cases.random_state_dict(n, ch, blocks, cases.TRAIN["param_seed"]))
+    net = cases.train_net(tree, n, ch, blocks, dev)
+    # roots part-way through random games, so that episodes end in the chunk
+    roots = tbit.bit_random_rollout(cases.CHUNK["rollout_seed"], n, cases.CHUNK["rollout_steps"],
+                                    tbit.bit_reset(n, b, dev))[0]
+    _, sample = selfplay.selfplay_chunk(net, roots,
+                                        torch.Generator(device=dev).manual_seed(1),
+                                        board_size=n, num_steps=t, num_simulations=sims)
+    w = sample.weight.clone()
+    w[:, : b // 2] = 0.0
+    require(float(w.sum()) > 0, "live value frames beside the zeroed half")
+    return tree, selfplay.Sample(*(x.cpu() for x in sample._replace(weight=w)))
+
+
+def shared_rollout_path(dev, card: str, k1_report: dict, k1_ms: float) -> None:
+    """Phase 26 (a): two ranks spawned on the card, over a gloo group (NCCL
+    refuses two ranks on one device), run the sharded K1 rollout with
+    nothing else on the card."""
+    rec = {c["world_size"]: c for c in json.loads(SHARDED_FIXTURE.read_text())["cases"]}[
+        SHARED_RANKS]
+    n, b, steps, seed = rec["board_size"], rec["batch"], rec["num_steps"], rec["seed"]
+    jobs = [("rollout", "bit_rollout", dict(board_size=n, batch=b, num_steps=steps, seed=seed,
+                                             check_plain=True, reps=SHARDED_REPS))]
+    t0 = time.perf_counter()
+    ranks = parallel.spawn_ranks(cases.dist_rank, SHARED_RANKS, (str(dev), jobs), timeout=600)
+    secs = time.perf_counter() - t0
+
+    # K1 on every rank, bit-equal to the plain version and to JAX
+    rolls = [r["rollout"] for r in ranks]
+    for rank, got in enumerate(rolls):
+        err = max_abs_diff(zip(got["leaves"], got["plain"]["leaves"]))
+        digest = tbit.state_digest(tbit.bitstate_from_leaves(got["leaves"]))
+        print(f"[dist rollout] rank {rank} of {SHARED_RANKS} on {dev}, gloo: n={n} "
+              f"{b // SHARED_RANKS} of {b} envs, {steps} steps, seed "
+              f"{parallel.envsharding.rank_seed(seed, rank)}: K1 launches {got['launches']}, "
+              f"max_abs_err vs plain {err}, digest {digest[:16]}; K1 median "
+              f"{statistics.median(got['kernel_ms'])} ms of {got['kernel_ms']} (CUDA events), "
+              f"the sharded call with its all-reduce median {statistics.median(got['call_ms'])} "
+              f"ms [{card}]")
+        require(got["launches"] >= 1, f"rank {rank} launched K1 on its shard")
+        require(err == 0, f"rank {rank}: K1 != plain on its shard")
+        require((got["episodes"], got["results"]) ==
+                (got["plain"]["episodes"], got["plain"]["results"]), "reduced stats vs plain")
+        require(digest == rec["digests"][rank], f"rank {rank}'s shard vs the JAX fixture")
+        require((got["episodes"], got["results"]) == (rec["episodes"], rec["results"]),
+                "reduced stats vs the JAX fixture")
+    call_ms = max(statistics.median(g["call_ms"]) for g in rolls)
+    print(f"[dist rollout] {SHARED_RANKS} ranks on one card: {b * steps / call_ms * 1e3} "
+          f"env-steps/s globally (the slower rank's sharded call) beside phase 5's one process "
+          f"{b * steps / k1_ms * 1e3} ({k1_ms} ms) [{card}]")
+    k1_report["rank_ms"] = [statistics.median(g["kernel_ms"]) for g in rolls]
+    k1_report["rank_launches"] = [g["launches"] for g in rolls]
+    print(f"[dist] phase 26 (a) in {secs} s")
+
+
+def shared_learner_path(dev, card: str) -> dict:
+    """Phase 26 (b)-(d): two ranks spawned on the card over gloo, the
+    distributed train step, the deterministic chunk and the learn check.
+    Returns the learn check's tally, which ``main`` holds to the bar."""
+    tree, sample = sharded_train_case(dev)
+    _, _, _, _, ch, blocks = DIST_TRAIN
+    train = dict(flax_params=tree, sample=sample, channels=ch, blocks=blocks, optimizer="sgd",
+                 lr=0.1, steps=1)
+    jobs = [("train1", "train", dict(train, microbatch=1)),
+            ("train3", "train", dict(train, microbatch=3)),
+            ("chunk0.0", "chunk", {"value_bootstrap": 0.0}),
+            ("chunk0.5", "chunk", {"value_bootstrap": 0.5}),
+            ("learn", "learn", {})]
+    t0 = time.perf_counter()
+    ranks = parallel.spawn_ranks(cases.dist_rank, SHARED_RANKS, (str(dev), jobs), timeout=900)
+    secs = time.perf_counter() - t0
+
+    # (b) the distributed train step against the local one on the whole sample
+    with no_tf32():
+        n5 = DIST_TRAIN[0]
+        net = cases.train_net(tree, n5, ch, blocks, dev)
+        local = selfplay.train_step(net, torch.optim.SGD(net.parameters(), 0.1),
+                                    selfplay.Sample(*(x.to(dev) for x in sample)))
+        want = {k: v.cpu() for k, v in net.state_dict().items()}
+    for k in (1, 3):
+        a, b_ = (r[f"train{k}"] for r in ranks)
+        err = max(float(((a["params"][name] - w).abs() / (DIST_TRAIN_TOL["atol"] + DIST_TRAIN_TOL[
+            "rtol"] * w.abs())).max()) for name, w in want.items())
+        m_err = max(abs(a["metrics"][0][key] / float(local[key]) - 1) for key in DIST_METRICS)
+        same = all(torch.equal(a["params"][name], b_["params"][name]) for name in want)
+        print(f"[dist train] microbatch {k}, float32 (TF32 off), SGD 0.1, half the envs' weights "
+              f"zeroed: parameters vs the local step at {err} of rtol 2e-5 + atol 1e-6, metrics "
+              f"rtol {m_err}; the ranks bitwise equal {same}")
+        require(err <= 1 and m_err <= 2e-5, f"the distributed step vs local (microbatch {k})")
+        require(same and a["metrics"] == b_["metrics"], "the ranks' parameters bitwise equal")
+
+    # (c) the deterministic chunk, split over the ranks
+    chunks = json.loads(SELFPLAY_FIXTURE.read_text())["chunks"]
+    for vb in (0.0, 0.5):
+        parts = [r[f"chunk{vb}"] for r in ranks]
+        final = tbit.bitstate_from_leaves(cases.concat_ranks([p["final"] for p in parts]))
+        sample_ = selfplay.Sample(*cases.concat_ranks([p["sample"] for p in parts], 1))
+        got = cases.sample_record(final, sample_)
+        want = {k: v for k, v in chunks[str(vb)].items() if k != "aux"}
+        print(f"[dist chunk] value_bootstrap {vb}: {SHARED_RANKS} ranks' columns equal "
+              f"torch_port_selfplay.json {got == want}")
+        require(got == want, f"the distributed chunk (bootstrap {vb}) vs the JAX record")
+
+    # (d) the learn check
+    learns = [r["learn"] for r in ranks]
+    tally = learns[0]["tally"]
+    same = all(torch.equal(learns[0]["params"][k], learns[1]["params"][k])
+               for k in learns[0]["params"])
+    c = cases.LEARN
+    losses = learns[0]["losses"]
+    h = len(losses) // 2
+    first, last = sum(losses[:h]) / h, sum(losses[h:]) / (len(losses) - h)
+    verdict = "held" if tally["a_score"] >= c["bar"] else "FAILS"
+    print(f"[dist learn] board {c['board_size']}, batch {c['batch']}, chunk {c['chunk_steps']}, "
+          f"{c['simulations']} simulations, {c['channels']}x{c['blocks']} bf16, "
+          f"{c['iterations']} iterations on {SHARED_RANKS} ranks: {learns[0]['train_s']} s, "
+          f"loss {losses[0]} -> {losses[-1]} (halves {first} -> {last}); the trained net vs JAX's "
+          f"init over {c['games']} games {tally} ({learns[0]['arena_s']} s): bar {c['bar']} "
+          f"{verdict}; ranks bitwise equal {same} [{card}]")
+    require(same, "the learn check's ranks end equal")
+    print(f"[dist] phase 26 (b)-(d) in {secs} s")
+    return tally
+
+
+@contextlib.contextmanager
+def dist_programs(dev, card: str):
+    """Phase 27's programs, started on entry and checked on exit (their
+    loops wait on the host, so they run beside phase 26 (b)-(d), and their
+    times are taken under that load): the driver with ``--mesh=1`` (a
+    world of one over NCCL) at phase 19's cut, then its ``--resume``; the
+    example front door for two iterations."""
+    procs, stop = [], threading.Event()
+
+    def run(cmd):
+        if stop.is_set():
+            raise RuntimeError("stopped")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        procs.append(proc)
+        out, err = proc.communicate(timeout=600)
+        return proc.returncode, out, err, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp, concurrent.futures.ThreadPoolExecutor(2) as pool:
+        ckpt, log = os.path.join(tmp, "ckpt"), os.path.join(tmp, "gate.jsonl")
+        driver = [sys.executable, "-m", "twixt_for_open_spiel_tpu_torch.train_arena_gate",
+                  *(f"--{k}={v}" for k, v in DRIVER.items()), "--mesh=1",
+                  f"--checkpoint_dir={ckpt}", f"--log={log}"]
+        flags = (["--iterations=3", "--gates=2,3"], ["--iterations=4", "--gates=2,3,4", "--resume"])
+        example = [sys.executable, "-m", "twixt_for_open_spiel_tpu_torch.examples.selfplay_train",
+                   *(f"--{k}={DRIVER[k]}" for k in ("board_size", "batch", "chunk_steps",
+                                                     "simulations", "channels", "blocks", "seed")),
+                   "--iterations=2", f"--checkpoint_dir={os.path.join(tmp, 'example')}"]
+        try:
+            runs = pool.submit(lambda: [run(driver + f) for f in flags])
+            ex = pool.submit(run, example)
+            yield
+            expect = (["train", "gate_vs_init", "train", "gate_vs_init", "best", "gate_vs_random",
+                       "done"], ["resume", "gate_vs_init", "best", "gate_vs_random", "done"])
+            results = runs.result(timeout=1200)
+            with open(log) as f:
+                recs = [json.loads(line) for line in f]
+            first = next(i for i, r in enumerate(recs) if r["kind"] == "done") + 1
+            for extra, (rc, _, err, secs), kinds_want, part in zip(
+                    flags, results, expect, (recs[:first], recs[first:])):
+                require(rc == 0, f"the driver --mesh=1 exits 0: {err[-2000:]}")
+                require("device=cuda" in err and "mesh=1" in err,
+                        "the driver ran --mesh=1 on the card")
+                kinds = [r["kind"] for i, r in enumerate(part)
+                         if i == 0 or r["kind"] != part[i - 1]["kind"]]
+                print(f"[dist driver] --mesh=1 {' '.join(extra)}: {secs} s, records "
+                      f"{[r['kind'] for r in part]} [{card}]")
+                for r in part:
+                    print(f"[dist driver]   {json.dumps(r)}")
+                require(kinds == kinds_want, f"the record kinds in order: {kinds}")
+            resume = next(r for r in recs if r["kind"] == "resume")
+            require(resume["from_iteration"] == 3, "resume from iteration 3")
+            params, _, it = serialization.restore_training(ckpt, dev)
+            require(it == 4 and all(t.is_cuda for t in params.values()), "the checkpoint")
+            rc, out, err, secs = ex.result(timeout=1200)
+            lines = out.splitlines()
+            print(f"[dist example] examples.selfplay_train, 2 iterations: {secs} s, {lines} "
+                  f"[{card}]")
+            require(rc == 0, f"the example exits 0: {err[-2000:]}")
+            require("on cuda (nccl)" in lines[0] and [x.split(":")[0] for x in lines[1:]] ==
+                    ["iter 0", "iter 1"], "the example's two iterations on the card")
+            require(serialization.restore_training(os.path.join(tmp, "example"), dev)[2] == 2,
+                    "the example's checkpoint")
+        finally:
+            stop.set()
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
+
+def nccl_world_of_one_path(dev, card: str) -> None:
+    """Phase 27: a world of one over NCCL in this process at config-5
+    width: one distributed chunk, the distributed train step beside the
+    local one, and the all-reduce alone."""
+    zero_counts()
+    parallel.initialize_world(device="cuda")
+    try:
+        mesh = parallel.make_env_mesh()
+        require(dist.get_backend() == "nccl" and mesh.size == 1, "a world of one over NCCL")
+        n, b, _, sims, ch, blocks = SELFPLAY_ROW
+        steps = DIST_CHUNK_STEPS
+        net = create_net(n, ch, blocks, device=mesh.device)
+        parallel.broadcast_params(net, mesh)
+        play, _ = parallel.make_distributed_selfplay(
+            call_net, n, steps, sims, mesh, temp_moves=SELFPLAY_TEMP_MOVES,
+            dirichlet_alpha=0.3, dirichlet_frac=0.25)
+        gen = parallel.rank_generator(0, mesh)
+        # roots part-way through random games, so that episodes end in the
+        # chunk and the train step has finished frames to weigh
+        state = tbit.bit_random_rollout(0, n, DIST_ROOT_STEPS,
+                                        parallel.sharded_bit_reset(n, b, mesh))[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, sample = play(net, state, gen)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        pk = sample.obs.reshape(steps, b, 12, n + 2 * geo.PAD)
+        legal = tobs.unpack_legal_words_flat(tobs.legal_words_from_obs(pk), n)
+        row_err = float((sample.policy.sum(-1) - 1).abs().max())
+        require(bool((sample.policy[~legal] == 0).all()), "no policy mass off the wire's legal set")
+        require(row_err <= 1e-5, "every policy row sums to 1")
+        require(bool(((sample.weight == 0) | (sample.weight == 1)).all()), "weights in {0, 1}")
+        require(bool((sample.value.abs() <= 1).all()), "|value| <= 1")
+        require(state.red.shape == (n + 6, b), "the shard's final state")
+        require(float(sample.weight.sum()) > 0, "episodes end in the chunk")
+        print(f"[nccl selfplay] world of one, config 5 cut to {steps} plies from roots "
+              f"{DIST_ROOT_STEPS} random plies in: n={n} batch={b} "
+              f"sims={sims} net {ch}x{blocks} bf16, temp_moves={SELFPLAY_TEMP_MOVES}, Dirichlet "
+              f"0.3/0.25: {secs} s -> {b * steps / secs} moves/s, {secs / steps} s a ply; frames "
+              f"with weight 1 {int((sample.weight == 1).sum())} of {sample.weight.numel()}; peak "
+              f"memory {peak} MiB; invariants hold (policy rows sum to 1 within {row_err}) "
+              f"[{card}]")
+
+        local_net = copy.deepcopy(net)
+        opt = selfplay.make_optimizer(net.parameters(), TRAIN_LR)
+        local_opt = selfplay.make_optimizer(local_net.parameters(), TRAIN_LR)
+        step, _ = parallel.make_distributed_train_step(call_net, opt, mesh)
+        last = {}
+        runs = {"local": lambda: selfplay.train_step(local_net, local_opt, sample),
+                "distributed": lambda: last.update(step(net, sample))}
+        # the first steps, from equal parameters: the same metrics
+        first = {"local": runs["local"](), "distributed": step(net, sample)}
+        m_err = max(abs(float(first["distributed"][k]) / float(first["local"][k]) - 1)
+                    for k in DIST_METRICS)
+        ms = {k: [] for k in runs}
+        for _ in range(TRAIN_REPS):  # in turns
+            for k, run in runs.items():
+                ms[k] += timed_ms(run, 1)
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        # the same steps, but cuDNN's backward may sum in another order
+        drift = max(float((a - p).abs().max()) for a, p in zip(local_net.state_dict().values(),
+                                                                net.state_dict().values()))
+
+        grads = [p for p in net.parameters()]
+        numel = sum(p.numel() for p in grads)
+        flat = torch.zeros(numel, dtype=torch.float32, device=mesh.device)
+        mesh.all_reduce(flat)
+        ar_ms = timed_ms(lambda: mesh.all_reduce(flat), ALLREDUCE_REPS)
+        print(f"[nccl train] on the chunk's {steps * b} frames "
+              f"({int(first['local']['train_frames'])} finished), net {ch}x{blocks} bf16, AdamW "
+              f"lr {TRAIN_LR}: the first steps' metrics {first['distributed']} against the local "
+              f"step's at rtol {m_err}; in turns, the distributed step median {med['distributed']} ms of "
+              f"{ms['distributed']}, the local train_step {med['local']} ms of {ms['local']}; "
+              f"largest parameter difference after {TRAIN_REPS + 1} steps each {drift}; the "
+              f"gradients' "
+              f"all-reduce alone ({numel} float32 in {len(grads)} tensors, {numel * 4} bytes, one "
+              f"collective) median {statistics.median(ar_ms)} ms of {ALLREDUCE_REPS} (CUDA "
+              f"events) [{card}]")
+        require(math.isfinite(float(last["loss"])) and
+                float(last["train_frames"]) == float(sample.weight.sum()),
+                "a finite loss over the chunk's finished frames")
+        require(m_err <= DIST_TRAIN_TOL["rtol"], "the distributed step's metrics vs the local")
+        no_kernel_launched("the NCCL world of one")
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1584,9 +1928,15 @@ def main() -> int:
     search_arms_rate_path(dev, card)
     arms_rate_path(dev, card)
     arena_arms_path(dev, card)
+    shared_rollout_path(dev, card, bit["reports"][0], bit["rates"][HEADLINE])
+    with dist_programs(dev, card):
+        learned = shared_learner_path(dev, card)
+    nccl_world_of_one_path(dev, card)
 
     print(f"[total] {time.perf_counter() - t_start} s from the build to here")
     print(json.dumps({"kernels": [*bit["reports"], tensor, store]}))
+    require(learned["a_score"] >= cases.LEARN["bar"],
+            f"the learn check: {learned['a_score']} against JAX's bar {cases.LEARN['bar']}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

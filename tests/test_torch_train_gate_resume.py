@@ -14,8 +14,12 @@ budget with ``--cpu``; one test runs the module as a program.  Pinned:
   * ``--smoke`` runs to its ``done`` record;
   * ``--search=gumbel`` and ``--search=puct_reuse`` reach self-play and
     ``--arena_search=gumbel`` every gate, and such a run resumes;
-  * the flag checks: no card, ``--mesh``, an unknown search, the Dirichlet
-    flags with Gumbel.
+  * the flag checks: no card, ``--mesh`` in a world of another size or with
+    a batch it does not divide, an unknown search, the Dirichlet flags with
+    Gumbel.
+
+The distributed runs (``--mesh=2`` as two gloo ranks) are pinned in
+``tests/test_torch_dist_driver.py``.
 """
 
 import json
@@ -206,7 +210,9 @@ def test_reuse_with_gumbel_gates_resumes(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("flags,code,message", [
-    (["--mesh=2"], 2, "item 6"),
+    (["--mesh=2"], 2, "WORLD_SIZE"),
+    (["--mesh=3"], 2, "no multiple of --mesh=3"),
+    (["--mesh=-1"], 2, "must be >= 0"),
     (["--search=beam"], 2, "invalid choice"),
     (["--search=gumbel", "--dirichlet_alpha=0.02"], 2, "no effect with"),
     (["--search=gumbel", "--dirichlet_frac=0.25"], 2, "no effect with"),

@@ -4,23 +4,33 @@ Seeded net parameters and observations for the net pins; the torch twins
 of the evaluators in ``tests/test_mcts_exact.py`` (the same float32
 operations, so both sides compute the same bits); a table net for the
 deterministic arena; the deterministic self-play chunks (PUCT, and the
-reuse and Gumbel arms) with their JSON record; and a check that every arena
-move is legal.  ``chip_smoke.py`` uses them on the card, where jax is
+reuse and Gumbel arms) with their JSON record; a check that every arena
+move is legal; and what a spawned rank of the distributed learner runs
+(:func:`dist_rank` and its cases).  ``chip_smoke.py`` uses them on the card, where jax is
 not installed, so this module imports torch, numpy and the port only.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
+import fcntl
 import hashlib
+import os
+import pathlib
+import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from twixt_for_open_spiel_tpu_torch.models import arena, mcts
-from twixt_for_open_spiel_tpu_torch.models.network import AZNet
-from twixt_for_open_spiel_tpu_torch.models.selfplay import selfplay_chunk
+from twixt_for_open_spiel_tpu_torch import parallel
+from twixt_for_open_spiel_tpu_torch.models import arena, convert, mcts
+from twixt_for_open_spiel_tpu_torch.models.network import AZNet, call_net, create_net
+from twixt_for_open_spiel_tpu_torch.models.selfplay import Sample, make_optimizer, selfplay_chunk
 from twixt_for_open_spiel_tpu_torch.ops import bitboard, state, step
+from twixt_for_open_spiel_tpu_torch.ops import fused_bit_rollout as fbr
+from twixt_for_open_spiel_tpu_torch.ops import geometry as geo
 
 
 def random_state_dict(board_size: int, channels: int, blocks: int, seed: int) -> dict:
@@ -309,3 +319,266 @@ def summary_err(got: dict, want: dict) -> float:
         raise KeyError(sorted(set(got) ^ set(want)))
     return max(max(abs(g - w) for g, w in zip(got[k], want[k])) / max(want[k][0], 1e-12)
                for k in want)
+
+
+# --- the distributed learner: what a spawned rank runs ------------------------
+# ``parallel.spawn_ranks(dist_rank, N, (device, jobs))`` runs each job
+# ``(name, case, kwargs)`` as ``DIST_CASES[case](mesh, **kwargs)`` on every
+# rank and returns each rank's ``{name: result}``; results are CPU tensors
+# and plain values.
+
+
+def dist_rank(rank: int, world_size: int, rdzv: str, device: str, jobs: list) -> dict:
+    """A spawned rank: join the group, run ``jobs`` in order.  On the CPU
+    the group is gloo through ``initialize_distributed``.  On a card the
+    ranks share it, and NCCL refuses two ranks on one device, so the group
+    is gloo over the card's tensors, made here and passed to the mesh."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        parallel.initialize_distributed(rdzv, world_size, rank, device="cpu")
+        mesh = parallel.make_env_mesh(device)
+    else:
+        dist.init_process_group("gloo", init_method=rdzv, world_size=world_size, rank=rank,
+                                timeout=parallel.launch.GROUP_TIMEOUT)
+        mesh = parallel.make_env_mesh(device, group=dist.group.WORLD)
+    return {name: DIST_CASES[case](mesh, **kw) for name, case, kw in jobs}
+
+
+def world_of_one_rank(rank: int, world_size: int, rdzv: str) -> dict:
+    """A spawned process that asks for no group: ``initialize_world`` makes
+    its world of one, whose all-reduce and mesh it returns."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        os.environ.pop(var, None)
+    world = parallel.initialize_world(device="cpu")
+    mesh = parallel.make_env_mesh("cpu")
+    return {"world": world, "backend": dist.get_backend(),
+            "sum": mesh.all_reduce(torch.tensor([3.0, 4.0])).tolist(),
+            "again": parallel.initialize_world(device="cpu"), "mesh": (mesh.rank, mesh.size)}
+
+
+def _cpu(tree) -> list:
+    return [x.cpu() for x in tree]
+
+
+def case_bit_rollout(mesh, board_size: int, batch: int, num_steps: int, seed: int,
+                     fused: bool = True, check_plain: bool = False, reps: int = 0) -> dict:
+    """``make_sharded_bit_rollout`` from the sharded reset: the rank's final
+    leaves, the reduced stats and K1's launches in that one call.  With
+    ``check_plain`` the plain rollout runs on the same shard and seed
+    (``fused=False``) and its leaves and reduced stats are returned beside;
+    with ``reps`` the rank's fused call is timed that many times (CUDA
+    events, after a barrier), with the host time of the whole sharded call
+    (K1 and the all-reduce)."""
+    bs = parallel.sharded_bit_reset(board_size, batch, mesh)
+    roll, _ = parallel.make_sharded_bit_rollout(board_size, num_steps, mesh, fused=fused)
+    fbr.fused_bit_rollout.launches = 0
+    final, stats = roll(seed, bs)
+    out = {"leaves": _cpu(bitboard.bitstate_leaves(final)), "episodes": int(stats["episodes"]),
+           "results": stats["results"].tolist(), "launches": fbr.fused_bit_rollout.launches}
+    if check_plain:
+        plain, _ = parallel.make_sharded_bit_rollout(board_size, num_steps, mesh, fused=False)
+        pfinal, pstats = plain(seed, bs)
+        out["plain"] = {"leaves": _cpu(bitboard.bitstate_leaves(pfinal)),
+                        "episodes": int(pstats["episodes"]), "results": pstats["results"].tolist()}
+    if reps:
+        kernel_ms, call_ms = [], []
+        for _ in range(reps):
+            dist.barrier(group=mesh.group)
+            torch.cuda.synchronize(mesh.device)
+            t0 = time.perf_counter()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fbr.fused_bit_rollout(parallel.envsharding.rank_seed(seed, mesh.rank), board_size,
+                                  num_steps, bs)
+            stop.record()
+            roll(seed, bs)
+            torch.cuda.synchronize(mesh.device)
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+            kernel_ms.append(start.elapsed_time(stop))
+        out["kernel_ms"], out["call_ms"] = kernel_ms, call_ms
+    return out
+
+
+def case_rollout(mesh, board_size: int, batch: int, num_steps: int, seed: int) -> dict:
+    """``make_sharded_rollout`` (the canonical engine) from the sharded reset."""
+    roll, _ = parallel.make_sharded_rollout(board_size, num_steps, mesh)
+    final, stats = roll(parallel.rank_generator(seed, mesh),
+                        parallel.sharded_batch_reset(board_size, batch, mesh))
+    return {"color_shape": tuple(final.color.shape), "color": final.color.cpu(),
+            "all_open": bool((final.result == geo.RESULT_OPEN).all()),
+            "episodes": int(stats["episodes"]), "results": stats["results"].tolist()}
+
+
+def train_net(flax_params, board_size: int, channels: int, blocks: int, device):
+    """The float32 net of the learner pins, with ``flax_params`` loaded."""
+    net = create_net(board_size, channels, blocks, dtype=torch.float32, device=device)
+    return convert.load_flax_params(net, flax_params)
+
+
+def case_train(mesh, flax_params, sample: Sample, channels: int, blocks: int, optimizer: str,
+               lr: float, microbatch: int, steps: int) -> dict:
+    """``steps`` distributed train steps of the float32 net from
+    ``flax_params`` on the rank's columns of the global ``sample``: the
+    parameters after, and each step's metrics."""
+    # float32 convolutions and matmuls without TF32 on a card
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    n = round(sample.policy.shape[-1] ** 0.5)
+    net = train_net(flax_params, n, channels, blocks, mesh.device)
+    opt = (torch.optim.SGD(net.parameters(), lr) if optimizer == "sgd"
+           else make_optimizer(net.parameters(), lr))
+    trainer, _ = parallel.make_distributed_train_step(call_net, opt, mesh, microbatch)
+    shard = parallel.shard_env_pytree(sample, mesh)
+    metrics = [{k: float(v) for k, v in trainer(net, shard).items()} for _ in range(steps)]
+    return {"params": {k: v.cpu() for k, v in net.state_dict().items()}, "metrics": metrics}
+
+
+def case_broadcast(mesh) -> dict:
+    """Each rank builds a differently seeded net and AdamW state (rank 0's
+    has stepped, the others' have not); ``broadcast_params`` makes every
+    rank's rank 0's."""
+    net = create_net(5, channels=8, blocks=1, dtype=torch.float32, device=mesh.device)
+    net.load_state_dict(random_state_dict(5, 8, 1, seed=10 + mesh.rank))
+    opt = make_optimizer(net.parameters(), 1e-3)
+    if mesh.rank == 0:
+        for p in net.parameters():
+            p.grad = torch.full_like(p, 0.5)
+        opt.step()
+    parallel.broadcast_params(net, mesh, opt)
+    state = {f"opt.{i}.{k}": v.cpu() for i, p in enumerate(net.parameters())
+             for k, v in opt.state[p].items()}
+    return {**{k: v.cpu() for k, v in net.state_dict().items()}, **state}
+
+
+def case_chunk(mesh, value_bootstrap: float) -> dict:
+    """The deterministic chunk of :func:`deterministic_chunk` through
+    ``make_distributed_selfplay`` on the rank's columns of its roots."""
+    n = CHUNK["board_size"]
+    roots = parallel.shard_env_pytree(chunk_roots(mesh.device), mesh)
+    selfplay, _ = parallel.make_distributed_selfplay(
+        chunk_table_net, n, CHUNK["num_steps"], CHUNK["num_simulations"], mesh, temp_moves=0,
+        dirichlet_frac=0.0, value_bootstrap=value_bootstrap)
+    final, sample = selfplay(arena_table_params(n * n, 0, mesh.device), roots,
+                             parallel.rank_generator(0, mesh))
+    return {"final": _cpu(bitboard.bitstate_leaves(final)), "sample": Sample(*_cpu(sample))}
+
+
+# The learn check of tests/test_sharding.py::test_dist_training_improves_gate
+# with its seeds: board 5, batch 32, chunk 8, 8 simulations, a 16x1 net,
+# AdamW 1e-3, 24 iterations, then 32 arena games against the initial net.
+# The initial net is JAX's own, init_params(PRNGKey(param_seed)), carried bit
+# for bit by LEARN_INIT; the self-play and arena seeds seed torch's streams
+LEARN = {"board_size": 5, "batch": 32, "chunk_steps": 8, "simulations": 8, "channels": 16,
+         "blocks": 1, "lr": 1e-3, "iterations": 24, "games": 32, "param_seed": 0,
+         "selfplay_seed": 1, "arena_seed": 123, "bar": 0.6}
+LEARN_INIT = pathlib.Path(__file__).parent / "fixtures" / "torch_port_learn_init.npz"
+
+
+def learn_init_flax() -> dict:
+    """The learn check's initial parameters as flax variables of numpy
+    arrays, read from ``LEARN_INIT`` (one array a leaf, keyed by its
+    ``/``-joined flax path; ``tests/test_torch_parallel.py`` writes it
+    from JAX and checks it)."""
+    tree: dict = {}
+    with np.load(LEARN_INIT) as leaves:
+        for path in leaves.files:
+            *parents, leaf = path.split("/")
+            node = tree
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = leaves[path]
+    return tree
+
+
+def case_learn(mesh) -> dict:
+    """The learn check from JAX's initial net: rank 0 plays the trained
+    net against it and returns the tally; every rank returns its
+    parameters."""
+    c = LEARN
+    n = c["board_size"]
+    net = convert.load_flax_params(create_net(n, c["channels"], c["blocks"], device=mesh.device),
+                                   learn_init_flax())
+    init = copy.deepcopy(net).requires_grad_(False)
+    parallel.broadcast_params(net, mesh)
+    opt = make_optimizer(net.parameters(), c["lr"])
+    selfplay, _ = parallel.make_distributed_selfplay(call_net, n, c["chunk_steps"],
+                                                     c["simulations"], mesh)
+    trainer, _ = parallel.make_distributed_train_step(call_net, opt, mesh)
+    state_ = parallel.sharded_bit_reset(n, c["batch"], mesh)
+    gen = parallel.rank_generator(c["selfplay_seed"], mesh)
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(c["iterations"]):
+        state_, sample = selfplay(net, state_, gen)
+        losses.append(float(trainer(net, sample)["loss"]))
+    out = {"params": {k: v.cpu() for k, v in net.state_dict().items()}, "losses": losses,
+           "train_s": time.perf_counter() - t0}
+    if mesh.rank == 0:
+        t0 = time.perf_counter()
+        tally = arena.arena_match(
+            net, init, torch.Generator(device=mesh.device).manual_seed(c["arena_seed"]),
+            board_size=n, batch=c["games"], num_simulations=c["simulations"],
+            device=mesh.device)
+        out["tally"] = {k: float(tally[k]) for k in ("a_score", "a_wins", "b_wins", "draws")}
+        out["arena_s"] = time.perf_counter() - t0
+    return out
+
+
+def case_driver(mesh, runs: list, stderr_dir: str) -> list:
+    """``train_arena_gate`` in this rank once per argument list of
+    ``runs``, its stderr to ``stderr_dir/stderr<rank>.txt``: each run's
+    trained parameters and first iteration."""
+    from twixt_for_open_spiel_tpu_torch import train_arena_gate as tg
+
+    out = []
+    with open(f"{stderr_dir}/stderr{mesh.rank}.txt", "w") as err, \
+            contextlib.redirect_stderr(err):
+        for argv in runs:
+            res = tg.run(tg.parse_args(argv))
+            out.append({"net": {k: v.cpu() for k, v in res["net"].state_dict().items()},
+                        "start_iteration": res["start_iteration"]})
+    return out
+
+
+def case_example(mesh, argv: list, stdout_dir: str) -> int:
+    """``examples.selfplay_train`` in this rank, its stdout to
+    ``stdout_dir/stdout<rank>.txt``; it ends the process group."""
+    from twixt_for_open_spiel_tpu_torch.examples import selfplay_train
+
+    with open(f"{stdout_dir}/stdout{mesh.rank}.txt", "w") as out, \
+            contextlib.redirect_stdout(out):
+        return selfplay_train.main(argv)
+
+
+DIST_CASES = {"bit_rollout": case_bit_rollout, "rollout": case_rollout, "train": case_train,
+              "broadcast": case_broadcast, "chunk": case_chunk, "learn": case_learn,
+              "driver": case_driver, "example": case_example}
+
+
+def concat_ranks(parts: list, dim: int = -1) -> list:
+    """The ranks' shards of each leaf, joined along the env axis."""
+    return [torch.cat(leaves, dim) for leaves in zip(*parts)]
+
+
+def shared_result(tmp_path_factory, name: str, compute):
+    """``compute()``, run once a pytest session: under pytest-xdist the
+    workers share the session's temporary root, where the first to take
+    the lock computes and saves the result (or its error) and the others
+    load it."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    path, failed = root / f"{name}.pt", root / f"{name}.failed"
+    with open(root / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if failed.exists():
+            raise RuntimeError(f"{name} failed in another test process:\n{failed.read_text()}")
+        if not path.exists():
+            try:
+                result = compute()
+            except BaseException as exc:
+                failed.write_text(repr(exc))
+                raise
+            torch.save(result, f"{path}.tmp")
+            os.replace(f"{path}.tmp", path)
+    return torch.load(path, weights_only=False)

@@ -26,6 +26,10 @@ module's counterpart has the same name:
   models/                     the net, the PUCT search, the arena, self-play
                               and the learner step (plain torch)
   utils/serialization.py      training checkpoints
+  parallel/                   the distributed learner on torch.distributed:
+                              one rank a card, the env batch sharded over
+                              the ranks, gradients all-reduced
+  examples/selfplay_train.py  the distributed self-play training front door
   train_arena_gate.py         the training driver with its arena gates
 
 Each kernel's module holds its plain torch version: CPU tensors run it, CUDA

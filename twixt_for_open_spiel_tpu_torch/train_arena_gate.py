@@ -4,6 +4,8 @@
     python -m twixt_for_open_spiel_tpu_torch.train_arena_gate \\
         --checkpoint_dir=ckpt --log=gate.jsonl          # on the card
     python -m twixt_for_open_spiel_tpu_torch.train_arena_gate --smoke   # tiny, CPU
+    torchrun --nproc_per_node=4 -m twixt_for_open_spiel_tpu_torch.train_arena_gate \\
+        --mesh=4 --checkpoint_dir=ckpt --log=gate.jsonl     # four cards
 
 Each iteration plays one self-play chunk (``models/selfplay.py``) and takes
 one ``train_step`` on it.  At every gate iteration the current net plays the
@@ -19,14 +21,22 @@ checkpoints keep its layout (``utils/serialization.py``; ``best/`` and
 ``best_meta.json`` beside the latest).  It runs on the card; ``--cpu`` runs
 the same arguments on the CPU, ``--smoke`` a tiny budget there.
 ``--search`` picks self-play's search (PUCT, PUCT with tree reuse,
-Gumbel), ``--arena_search`` the gates' (PUCT or Gumbel).  Not ported yet:
-``--mesh`` (ROADMAP Queue 1, item 6).  ``--dirichlet_frac`` defaults to
-None and means 0.25, so that any explicit Dirichlet flag with
-``--search=gumbel`` is refused.
+Gumbel), ``--arena_search`` the gates' (PUCT or Gumbel).
+``--dirichlet_frac`` defaults to None and means 0.25, so that any explicit
+Dirichlet flag with ``--search=gumbel`` is refused.
+
+``--mesh=N`` runs the distributed learner (``parallel/``) on a world of N
+ranks, one a card: torchrun's N processes, or this one process for N = 1
+(a world of one, whose collectives still run).  ``--batch`` is global and
+each rank plays its ``batch / N`` envs and trains on them; the gradients
+are averaged by an all-reduce.  Rank 0 alone plays the gates, writes the
+records and checkpoints, and on ``--resume`` reads the checkpoint and
+broadcasts the parameters and optimizer state to the other ranks.
 
 Randomness comes from one ``torch.Generator`` seeded from ``--seed``; a
 resumed run re-seeds it from (seed, first iteration), as the JAX script
-folds the iteration into its key.  The gates' opponents (the initial net,
+folds the iteration into its key; with ``--mesh`` each rank folds its rank
+into that seed.  The gates' opponents (the initial net,
 the best net) are copies of the module taken when they are fixed; the
 trained module changes in place.
 """
@@ -41,15 +51,27 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from twixt_for_open_spiel_tpu_torch.models.arena import arena_match
-from twixt_for_open_spiel_tpu_torch.models.network import create_net, init_params
+from twixt_for_open_spiel_tpu_torch.models.network import call_net, create_net, init_params
 from twixt_for_open_spiel_tpu_torch.models.selfplay import (
     make_optimizer,
     selfplay_chunk,
     train_step,
 )
 from twixt_for_open_spiel_tpu_torch.ops.bitboard import bit_reset
+from twixt_for_open_spiel_tpu_torch.parallel.envsharding import sharded_bit_reset
+from twixt_for_open_spiel_tpu_torch.parallel.launch import initialize_world
+from twixt_for_open_spiel_tpu_torch.parallel.learner_feed import (
+    make_distributed_selfplay,
+    make_distributed_train_step,
+)
+from twixt_for_open_spiel_tpu_torch.parallel.mesh import (
+    broadcast_params,
+    fold_seed as _fold,
+    make_env_mesh,
+)
 from twixt_for_open_spiel_tpu_torch.utils import serialization
 
 
@@ -86,7 +108,9 @@ def parse_args(argv=None):
     ap.add_argument("--gates", default="100,200,300,400,500,600,700,800,900,1000",
                     help="comma-separated iterations at which to arena-gate")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="N>0: the distributed learner (not ported; 0 runs locally)")
+                    help="N>0: the distributed learner on a world of N ranks, one a card "
+                         "(torchrun --nproc_per_node=N, or one process for N=1); 0 runs "
+                         "locally")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--checkpoint_dir", default=None)
     ap.add_argument("--resume", action="store_true",
@@ -99,9 +123,6 @@ def parse_args(argv=None):
                     help="run on the CPU without --smoke's tiny budget")
     args = ap.parse_args(argv)
 
-    if args.mesh:
-        ap.error("--mesh needs the distributed learner, not ported yet "
-                 "(ROADMAP Queue 1, item 6); use --mesh=0")
     if args.search == "gumbel" and (
             args.dirichlet_alpha is not None or args.dirichlet_frac is not None):
         ap.error("--dirichlet_alpha/--dirichlet_frac have no effect with --search=gumbel "
@@ -114,14 +135,20 @@ def parse_args(argv=None):
         args.simulations, args.channels, args.blocks = 8, 16, 1
         args.iterations, args.arena_batch, args.arena_sims = 4, 16, 8
         args.gates = "2,4"
+    if args.mesh < 0:
+        ap.error(f"--mesh={args.mesh} must be >= 0")
+    if args.mesh:
+        if args.batch % args.mesh:
+            ap.error(f"--batch={args.batch} is no multiple of --mesh={args.mesh}")
+        world = (dist.get_world_size() if dist.is_initialized()
+                 else int(os.environ.get("WORLD_SIZE", 1)))
+        if world != args.mesh:
+            ap.error(f"--mesh={args.mesh} needs a world of {args.mesh} ranks, one a card, "
+                     f"and this one has {world} (WORLD_SIZE): run it under torchrun "
+                     f"--nproc_per_node={args.mesh}, or as one process with --mesh=1")
     if not (args.smoke or args.cpu) and not torch.cuda.is_available():
         ap.exit(1, f"{ap.prog}: no CUDA device; pass --cpu or --smoke to run on the CPU\n")
     return args
-
-
-def _fold(seed: int, i: int) -> int:
-    """A generator seed from (seed, i): the JAX script's ``fold_in``."""
-    return (seed * 0x9E3779B97F4A7C15 + i) % (1 << 63)
 
 
 def _snapshot(net):
@@ -132,11 +159,20 @@ def _snapshot(net):
 
 def run(args) -> dict:
     """The training loop of ``args`` (from :func:`parse_args`), each record
-    to stderr and to ``--log``.  Returns the trained net, the initial and
-    best nets, the best gate record and the first iteration run."""
-    logf = open(args.log, "a") if args.log else None
+    to stderr and to ``--log`` (rank 0's only, with ``--mesh``).  Returns
+    the trained net, the initial and best nets, the best gate record and
+    the first iteration run."""
+    device = "cpu" if args.smoke or args.cpu else "cuda"
+    mesh = None
+    if args.mesh:
+        initialize_world(device=device)
+        mesh = make_env_mesh(device if device == "cpu" else None)
+    lead = mesh is None or mesh.rank == 0
+    logf = open(args.log, "a") if args.log and lead else None
 
     def emit(rec):
+        if not lead:
+            return
         line = json.dumps(rec)
         print(line, file=sys.stderr)
         if logf:
@@ -144,25 +180,59 @@ def run(args) -> dict:
             logf.flush()
 
     try:
-        return _train(args, emit)
+        return _train(args, emit, device, mesh)
     finally:
         if logf:
             logf.close()
 
 
-def _train(args, emit) -> dict:
-    device = "cpu" if args.smoke or args.cpu else "cuda"
+def _train(args, emit, device, mesh) -> dict:
+    lead = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        device = mesh.device
     n = args.board_size
     gates = sorted(int(g) for g in args.gates.split(",") if g)
-    print(f"[train] device={device} n={n} batch={args.batch} chunk={args.chunk_steps} "
-          f"sims={args.simulations} net={args.channels}x{args.blocks} "
-          f"iters={args.iterations} search={args.search} arena_search={args.arena_search} "
-          f"gates={gates}", file=sys.stderr)
+    if lead:
+        print(f"[train] device={device} n={n} batch={args.batch} chunk={args.chunk_steps} "
+              f"sims={args.simulations} net={args.channels}x{args.blocks} "
+              f"iters={args.iterations} search={args.search} arena_search={args.arena_search} "
+              f"gates={gates} mesh={args.mesh}", file=sys.stderr)
     net = init_params(create_net(n, channels=args.channels, blocks=args.blocks,
                                  device="cpu"), args.seed).to(device)
     init_net = _snapshot(net)
     opt = make_optimizer(net.parameters(), args.lr)
-    gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+
+    def stream_seed(seed):  # each rank folds its rank in
+        return seed if mesh is None else _fold(seed, mesh.rank)
+
+    gen = torch.Generator(device=device).manual_seed(stream_seed(args.seed + 1))
+    if mesh is None:
+        def play(state):
+            return selfplay_chunk(
+                net, state, gen, board_size=n, num_steps=args.chunk_steps,
+                num_simulations=args.simulations, temp_moves=args.temp_moves,
+                search=args.search, dirichlet_alpha=args.dirichlet_alpha,
+                dirichlet_frac=args.dirichlet_frac, value_bootstrap=args.value_bootstrap)
+
+        def learn(sample):
+            return train_step(net, opt, sample, microbatch=args.train_microbatch)
+
+        state = bit_reset(n, args.batch, device)
+    else:
+        dist_play, _ = make_distributed_selfplay(
+            call_net, n, args.chunk_steps, args.simulations, mesh, search=args.search,
+            temp_moves=args.temp_moves, dirichlet_alpha=args.dirichlet_alpha,
+            dirichlet_frac=args.dirichlet_frac, value_bootstrap=args.value_bootstrap)
+        dist_learn, _ = make_distributed_train_step(call_net, opt, mesh,
+                                                    microbatch=args.train_microbatch)
+
+        def play(state):
+            return dist_play(net, state, gen)
+
+        def learn(sample):
+            return dist_learn(net, sample)
+
+        state = sharded_bit_reset(n, args.batch, mesh)
 
     def gate(candidate, it):
         t0 = time.perf_counter()
@@ -174,7 +244,6 @@ def _train(args, emit) -> dict:
               "secs": round(time.perf_counter() - t0, 1)})
         return tally["a_score"]
 
-    state = bit_reset(n, args.batch, device)
     best_score, best_net, best_it = -1.0, _snapshot(net), 0
     start_it = 1
     meta_path = best_dir = None
@@ -182,7 +251,7 @@ def _train(args, emit) -> dict:
         meta_path = os.path.join(args.checkpoint_dir, "best_meta.json")
         best_dir = os.path.join(args.checkpoint_dir, "best")
     restored = None
-    if args.resume and args.checkpoint_dir:
+    if args.resume and args.checkpoint_dir and lead:
         restored = serialization.restore_training(args.checkpoint_dir, device)
     if restored is not None:
         params, opt_state, last_it = restored
@@ -211,21 +280,23 @@ def _train(args, emit) -> dict:
             best_score = gate(best_net, best_it)
             with open(meta_path, "w") as f:  # repair the layout
                 json.dump({"a_score": best_score, "iteration": best_it}, f)
-        # the stream restarts from the checkpointed iteration's fold, with
-        # fresh env states: a recovery path, not a bitwise continuation
-        gen.manual_seed(_fold(args.seed + 1, start_it))
         emit({"kind": "resume", "from_iteration": last_it, "best_score": best_score,
               "best_iteration": best_it})
+    if mesh is not None:
+        # rank 0 alone reads the checkpoint; every rank takes its first
+        # iteration, parameters and optimizer state (at a fresh start too)
+        start_it = int(mesh.broadcast(torch.tensor([start_it], device=device))[0])
+        broadcast_params(net, mesh, opt)
+    if start_it > 1:
+        # the stream restarts from the checkpointed iteration's fold, with
+        # fresh env states: a recovery path, not a bitwise continuation
+        gen.manual_seed(stream_seed(_fold(args.seed + 1, start_it)))
 
     t_start = time.perf_counter()
     for it in range(start_it, args.iterations + 1):
         t0 = time.perf_counter()
-        state, sample = selfplay_chunk(
-            net, state, gen, board_size=n, num_steps=args.chunk_steps,
-            num_simulations=args.simulations, temp_moves=args.temp_moves,
-            search=args.search, dirichlet_alpha=args.dirichlet_alpha,
-            dirichlet_frac=args.dirichlet_frac, value_bootstrap=args.value_bootstrap)
-        metrics = train_step(net, opt, sample, microbatch=args.train_microbatch)
+        state, sample = play(state)
+        metrics = learn(sample)
         loss = float(metrics["loss"])  # waits for the step
         dt = time.perf_counter() - t0
         if it <= 3 or it % 10 == 0:
@@ -236,7 +307,7 @@ def _train(args, emit) -> dict:
                   "target_entropy": round(float(metrics["target_entropy"]), 3),
                   "secs": round(dt, 2),
                   "moves_per_s": round(args.batch * args.chunk_steps / dt)})
-        if it in gates:
+        if it in gates and lead:
             score = gate(net, it)
             if score > best_score:
                 best_score, best_net, best_it = score, _snapshot(net), it
@@ -247,23 +318,26 @@ def _train(args, emit) -> dict:
             if args.checkpoint_dir:
                 serialization.save_training(args.checkpoint_dir, net, opt, it)
 
-    # the final gate: the best net against uniform random moves (B's net is
-    # A's; random_b replaces B's moves)
-    emit({"kind": "best", "iteration": best_it, "a_score": best_score})
-    t0 = time.perf_counter()
-    tally = arena_match(best_net, best_net, gen, board_size=n, batch=args.arena_batch,
-                        num_simulations=args.arena_sims, random_b=True,
-                        search=args.arena_search, device=device)
-    emit({"kind": "gate_vs_random", "iteration": best_it,
-          **{k: float(tally[k]) for k in ("a_score", "a_wins", "b_wins", "draws", "games")},
-          "secs": round(time.perf_counter() - t0, 1)})
-    emit({"kind": "done", "total_secs": round(time.perf_counter() - t_start, 1)})
+    if lead:
+        # the final gate: the best net against uniform random moves (B's net
+        # is A's; random_b replaces B's moves)
+        emit({"kind": "best", "iteration": best_it, "a_score": best_score})
+        t0 = time.perf_counter()
+        tally = arena_match(best_net, best_net, gen, board_size=n, batch=args.arena_batch,
+                            num_simulations=args.arena_sims, random_b=True,
+                            search=args.arena_search, device=device)
+        emit({"kind": "gate_vs_random", "iteration": best_it,
+              **{k: float(tally[k]) for k in ("a_score", "a_wins", "b_wins", "draws", "games")},
+              "secs": round(time.perf_counter() - t0, 1)})
+        emit({"kind": "done", "total_secs": round(time.perf_counter() - t_start, 1)})
     return {"net": net, "init_net": init_net, "best_net": best_net, "best_score": best_score,
             "best_iteration": best_it, "start_iteration": start_it}
 
 
 def main(argv=None) -> int:
     run(parse_args(argv))
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return 0
 
 
