@@ -103,7 +103,7 @@ non-zero exit.
       bound (3 x the forward's FLOPs over 989 TFLOP/s), the loss, peak
       memory, and that the parameters moved;
   19. the driver as a program on the card (board 8, batch 64, chunk 8, 16
-      simulations, 64 x 4, gates at 2 and 3, arena batch 32 with 8
+      simulations, 64 x 4, gates at 2 and 3, arena batch 32 with 4
       simulations), then ``--resume`` to iteration 4: the JSONL record
       kinds in order, the resume at iteration 4 with the best record
       restored, ``gate_vs_random``, and the checkpoint loaded onto the
@@ -128,14 +128,15 @@ non-zero exit.
       after a played greedy ply (129 slots: the per-element gather, the
       amask backup) with ``reused_envs`` and ``inherited_visits``; the
       median ms a search and a simulation by CUDA events, peak memory;
-  23. one config-5 chunk of each arm, cut from 32 to 16 plies: moves/s, s
+  23. one config-5 chunk of each arm, cut from 32 to 8 plies: moves/s, s
       a ply, the search's share (CUDA events), peak memory, and the
       invariants against the states replayed from the chunk's actions;
   24. at the arena row's shape (board 8, B=64, the 128x6 net):
       ``arena_match(search="gumbel")`` against the random bot and
-      ``arena_match(reuse_a=True)`` at 16 simulations, and
-      ``arena_match_asym`` with Gumbel at 8 (cut from 16) against PUCT at
-      16; every move checked against its state's legal mask, the tallies;
+      ``arena_match(reuse_a=True)`` at 8 simulations, and
+      ``arena_match_asym`` with Gumbel at 8 against PUCT at 16 (cut from
+      16 simulations, and from the JAX script's 16 against 64); every move checked against its state's legal mask,
+      the tallies;
   25. (run beside phase 19, whose host loops leave the card idle) the
       driver as two more programs at phase 19's cut (three iterations,
       gates at 2 and 3): ``--search=puct_reuse --arena_search=gumbel`` and
@@ -176,9 +177,35 @@ non-zero exit.
       the driver as a program with ``--mesh=1`` at phase 19's cut and its
       ``--resume``, and ``examples.selfplay_train`` for two iterations.
 
-The net, search, arena, self-play, train and driver lines with a time end
-with the card's name and power limit (printed alone first).  The total
-time is printed before the two JSON lines.  The
+  the host side (``game/``, ``native/``, ``ops/replay.py``,
+  ``utils/profiling.py``, ``examples/``; plain torch on the card, the C
+  engine and renderer on the host, built beside the nvcc builds):
+  28. (a) BASELINE config 1: ``load_game("twixt", device="cuda")`` and
+      ``playthrough.generate`` with the actions and sampling pattern of
+      ``tests/fixtures/playthrough_board8.txt``, byte-equal to it, the
+      game's tensors on CUDA (its time beside the CPU's); (b) the
+      reference's scenarios through the adapter on the card, each beside the
+      C engine: the win line, the swap, the board-5 draw, the illegal
+      corner's message; (c) full random C games at board 24 applied move by
+      move through ``TwixTState.apply_action`` on the card: the final string
+      equal to ``render_py``'s, the state to the C engine's snapshot (ms a
+      move beside the CPU's, and the card's busy share over 32 traced
+      moves); (d) ``bit_replay`` of 4096 board-24 C games
+      (``tests/test_soak.py``'s seeds, widened from 256) in one call on the
+      card, and of 256 at boards 24, 5 and 12: every final leaf equal to the C
+      engine's snapshot (the call's time, valid env-steps/s, and the card's
+      busy share over 32 traced steps at B=4096), and the C engine's
+      games/s; (e) after (d), beside (f), ``examples.example``,
+      ``examples.arena`` at the arena row's cut and ``examples.mcts_example``
+      at board 5 with 4 simulations, as programs on the card; (f)
+      ``utils.profiling.trace`` around a board-12 B=512 search (8
+      simulations) with an ``annotate`` span: the trace names the span and
+      holds the card's kernels.
+
+The net, search, arena, self-play, train, driver and host lines with a
+time end with the card's name and power limit (printed alone first).
+``[time]`` lines give each group of phases' wall time, and the total time
+is printed before the two JSON lines.  The
 second-to-last line is a JSON object describing the kernels (K1 and K2
 as entries of their own), each with
 its time, its plain version's time and its bound (the least time the card
@@ -207,9 +234,12 @@ import time
 import torch
 import torch.distributed as dist
 
-from twixt_for_open_spiel_tpu_torch import parallel
+from twixt_for_open_spiel_tpu_torch import native, parallel
+from twixt_for_open_spiel_tpu_torch.game import SpielError, load_game, playthrough
+from twixt_for_open_spiel_tpu_torch.game.render import render_py
 from twixt_for_open_spiel_tpu_torch.models import arena, convert, mcts, selfplay
 from twixt_for_open_spiel_tpu_torch.models.network import call_net, create_net
+from twixt_for_open_spiel_tpu_torch.native.engine import NativeEngine, load_engine, random_games
 from twixt_for_open_spiel_tpu_torch.ops import _cuda, _sass
 from twixt_for_open_spiel_tpu_torch.ops import bitboard as tbit
 from twixt_for_open_spiel_tpu_torch.ops import fused_bit_rollout as fbr
@@ -219,7 +249,8 @@ from twixt_for_open_spiel_tpu_torch.ops import rollout as troll
 from twixt_for_open_spiel_tpu_torch.ops import state as tstate
 from twixt_for_open_spiel_tpu_torch.ops import observe as tobs
 from twixt_for_open_spiel_tpu_torch.ops import store_skeleton as sk
-from twixt_for_open_spiel_tpu_torch.utils import serialization
+from twixt_for_open_spiel_tpu_torch.ops.replay import bit_replay
+from twixt_for_open_spiel_tpu_torch.utils import profiling, serialization
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -326,9 +357,10 @@ SELFPLAY_ROW = (12, 512, 32, 64, 64, 4)
 SELFPLAY_TEMP_MOVES = 16
 TRAIN_REPS = 5
 TRAIN_LR = 1e-3  # train_arena_gate's --lr
-# the driver's budget: a short run, then --resume one iteration further
+# the driver's budget: a short run, then --resume one iteration further; its
+# gates' searches cut from 8 to 4 simulations for the time limit
 DRIVER = {"board_size": 8, "batch": 64, "chunk_steps": 8, "simulations": 16, "channels": 64,
-          "blocks": 4, "arena_batch": 32, "arena_sims": 8, "seed": 0}
+          "blocks": 4, "arena_batch": 32, "arena_sims": 4, "seed": 0}
 
 # --- the Gumbel and reuse searches and their arms (plain torch on the card) -
 GUMBEL_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_gumbel.json"
@@ -336,10 +368,12 @@ REUSE_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_reuse.json"
 ARMS_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_selfplay_arms.json"
 GUMBEL_TOL = {"improved": 1e-6, "root_q": 1e-5}
 ARMS_POLICY_TOL = 1e-6  # the Gumbel chunk's improved-policy targets
-# config 5's chunk for the arms, cut from 32 to 16 plies for the time limit
-ARM_CHUNK_STEPS = 16
-# the arena arms at ARENA_ROW's board and batch; arena_match_asym's sims_a
-# cut to 8 (the JAX script's default is 16) for the time limit
+# config 5's chunk for the arms, cut from 32 to 8 plies for the time limit
+ARM_CHUNK_STEPS = 8
+# the arena arms at ARENA_ROW's board and batch with 8 simulations (cut from
+# 16), and arena_match_asym's Gumbel side at 8 against PUCT at 16 (the JAX
+# script's defaults are 16 and 64), for the time limit
+ARENA_ARMS_SIMS = 8
 ASYM_SIMS = (8, 16)
 DRIVER_ARMS = (["--search=puct_reuse", "--arena_search=gumbel"], ["--search=gumbel"])
 
@@ -356,6 +390,24 @@ DIST_METRICS = ("loss", "policy_loss", "value_loss", "train_frames")
 DIST_CHUNK_STEPS = 16
 DIST_ROOT_STEPS = 160  # random plies before the chunk, so that its episodes end
 ALLREDUCE_REPS = 20
+
+# --- the host side (phase 28: the adapter, the C engine, the replay) -------
+HOST_GAMES = 2  # (c) full random C games at board 24 through the adapter on the card
+# (d) board, games: the C engine's games with tests/test_soak.py's seeds
+# 97 * n + b, widened from 256 to 4096 games at board 24
+REPLAY_ROWS = [(24, 4096), (24, 256), (5, 256), (12, 256)]
+C_GAMES_ROW = (24, 1, 4096)  # the C engine's random_games: board, seed, games
+# (f) the search under torch.profiler: board, batch (config 5's), simulations
+# (cut from 64 to keep the trace small)
+PROFILE_ROW = (12, 512, 8)
+PROFILE_SPAN = "chip_smoke/search_batch"
+# (e) the example programs on the card: the arena at the arena row's cut,
+# the MCTS example at board 5 with 4 simulations (cut from board 8 and 100)
+EXAMPLES = {
+    "example": ["--game=twixt(board_size=8)", "--seed=0"],
+    "arena": ["--board_size=8", "--batch=64", "--simulations=16", "--random_b"],
+    "mcts_example": ["--game=twixt(board_size=5)", "--max_simulations=4"],
+}
 
 
 def require(ok: bool, what: str) -> None:
@@ -549,10 +601,19 @@ def store_bytes(rows, steps, subl, lanes, grid) -> int:
 
 
 def build_all() -> None:
+    """The CUDA sources (one nvcc each, all at once) and, beside them, the
+    C host engine and renderer (phase 28 needs both; a failed build fails
+    the run)."""
     t0 = time.perf_counter()
-    _cuda.build(*KERNELS)
-    print(f"[build] nvcc sm_90a, {len(KERNELS)} sources in parallel: "
-          f"{time.perf_counter() - t0:.3f} s")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        c_libs = [pool.submit(native.load_lib, stem) for stem in ("render", "engine")]
+        _cuda.build(*KERNELS)
+        cuda_s = time.perf_counter() - t0
+        for stem, lib in zip(("render", "engine"), c_libs):
+            require(lib.result() is not None,
+                    f"the C {stem} builds: {native.build_errors.get(stem)}")
+    print(f"[build] nvcc sm_90a, {len(KERNELS)} sources in parallel: {cuda_s:.3f} s; "
+          f"the C renderer and engine beside them: {time.perf_counter() - t0:.3f} s")
     for name in KERNELS:
         for line in (_cuda.BUILD / f"lib{name}.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -1464,7 +1525,7 @@ def search_arms_rate_path(dev, card: str) -> None:
 
 
 def arms_rate_path(dev, card: str) -> None:
-    """Phase 23: one config-5 chunk of each arm, cut to 16 plies."""
+    """Phase 23: one config-5 chunk of each arm, cut to ARM_CHUNK_STEPS plies."""
     zero_counts()
     n, b, _, sims, ch, blocks = SELFPLAY_ROW
     steps = ARM_CHUNK_STEPS
@@ -1524,7 +1585,8 @@ def arena_arms_path(dev, card: str) -> None:
     """Phase 24: the Gumbel, reuse and asymmetric arenas at the arena row's
     board and batch, every move checked legal."""
     zero_counts()
-    n, b, sims = ARENA_ROW
+    n, b, _ = ARENA_ROW
+    sims = ARENA_ARMS_SIMS
     net = create_net(n, device=dev)
     sims_a, sims_b = ASYM_SIMS
     runs = [
@@ -1894,6 +1956,243 @@ def nccl_world_of_one_path(dev, card: str) -> None:
     finally:
         dist.destroy_process_group()
 
+def golden_path(dev, card: str) -> None:
+    """Phase 28 (a)-(b): BASELINE config 1 (the golden playthrough, byte
+    for byte) and the reference's scenarios through the adapter on the
+    card, beside the C engine."""
+    text = cases.PLAYTHROUGH_FIXTURE.read_text()
+    actions, dumped = cases.playthrough_structure(text)
+    out = {}
+    for key, where in (("card", dev), ("cpu", "cpu")):
+        game = load_game("twixt", device=where)
+        t0 = time.perf_counter()
+        got = playthrough.generate(game, actions, full_dump_states=dumped)
+        out[key] = (got, time.perf_counter() - t0)
+    state = load_game("twixt", device=dev).new_initial_state()
+    require(state.tensor_state.color.device.type == "cuda", "the game's tensors on the card")
+    got, secs = out["card"]
+    print(f"[host config 1] twixt() golden playthrough, {len(actions)} actions, "
+          f"{len(dumped)} states dumped in full: {len(got)} characters, byte-equal to "
+          f"tests/fixtures/playthrough_board8.txt: {got == text}; {secs} s on the card "
+          f"(the CPU {out['cpu'][1]} s) [{card}]")
+    require(got == text, "BASELINE config 1: the golden playthrough byte for byte on the card")
+
+    def play(name, moves):
+        s = load_game(name, device=dev).new_initial_state()
+        for a in moves:
+            s.apply_action(a)
+        require(all(t.is_cuda for t in s.tensor_state), "the adapter's state stays on the card")
+        return s
+
+    def engine(n, moves):
+        eng = NativeEngine(n)
+        for a in moves:
+            eng.apply(a)
+        return eng
+
+    win, c_win = play("twixt", cases.WIN_LINE), engine(8, cases.WIN_LINE)
+    require(win.is_terminal() and win.returns() == c_win.returns() == [1.0, -1.0],
+            "the win line ends with returns [1, -1]")
+    swap, c_swap = play("twixt", [19, 19]), engine(8, [19, 19])
+    la = swap.legal_actions()
+    require(bool(swap.tensor_state.swapped) and c_swap.swapped, "19 then 19 swaps")
+    require(19 in la and 29 not in la and la == c_swap.legal_actions(),
+            "after the swap c5 is legal again, the rotated d3 is not")
+    draw, c_draw, i = play("twixt(board_size=5)", []), NativeEngine(5), 0
+    while not draw.is_terminal():  # the reference's .at(0) / .at(1) pattern
+        la = draw.legal_actions()
+        require(la == c_draw.legal_actions(), "the draw's legal sets, adapter and C")
+        a = la[min(i % 2, len(la) - 1)]
+        draw.apply_action(a)
+        c_draw.apply(a)
+        i += 1
+    require(draw.returns() == c_draw.returns() == [0.0, 0.0] and c_draw.result == geo.RESULT_DRAW,
+            "the board-5 draw")
+    msgs = []
+    for apply, kind in ((play("twixt", []).apply_action, SpielError), (NativeEngine(8).apply,
+                                                                      ValueError)):
+        try:
+            apply(0)
+        except kind as e:
+            msgs.append(str(e))
+    require(msgs == ["Not a legal action: 0"] * 2, f"the illegal corner refused: {msgs}")
+    print(f"[host scenarios] on the card, each beside the C engine: the win line "
+          f"{win.history} returns {win.returns()}; 19, 19 swapped; the board-5 draw in {i} "
+          f"moves; {msgs}")
+
+
+BUSY_STEPS = 32  # (c), (d): moves or lockstep steps traced for the card's busy share
+DEVICE_CATS = {"kernel", "gpu_memcpy", "gpu_memset"}
+
+
+def device_busy(fn) -> tuple:
+    """``fn`` under ``utils.profiling.trace``: its device activities, and
+    their summed time over the span from the first one's start to the last
+    one's end (the card's busy share; the rest is waiting on the host)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            fn()
+            torch.cuda.synchronize()
+        (path,) = pathlib.Path(tmp).glob("*.pt.trace.json")
+        events = json.loads(path.read_text())["traceEvents"]
+    acts = [e for e in events if e.get("cat") in DEVICE_CATS]
+    require(bool(acts), "the trace holds the card's activities")
+    span = max(e["ts"] + e["dur"] for e in acts) - min(e["ts"] for e in acts)
+    return len(acts), sum(e["dur"] for e in acts) / span
+
+
+def adapter_games_path(dev, card: str) -> None:
+    """Phase 28 (c): full random C games at board 24 applied move by move
+    through the adapter on the card; the final board string and the state
+    against the Python renderer and the C engine's snapshot."""
+    n = 24
+    padded, facts = cases.c_games(n, [97 * n + b for b in range(HOST_GAMES)])
+    game = load_game(f"twixt(board_size={n})", device=dev)
+    ms, moves, strings = [], 0, []
+    for b in range(HOST_GAMES):
+        history = [int(a) for a in padded[:, b] if a >= 0]
+        s = game.new_initial_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in history:
+            s.apply_action(a)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / len(history))
+        moves += len(history)
+        t = s.tensor_state
+        strings.append(s.to_string())
+        require(t.color.is_cuda and s.is_terminal(), "a finished game on the card")
+        require(strings[-1] == render_py(t.color, t.links, n, bool(t.swapped), int(t.result)),
+                "the C renderer's string equals the Python renderer's at board 24")
+        one = tstate.State(*(x[..., None] for x in t))
+        bad = cases.state_mismatches(one, n, {k: v[b : b + 1] for k, v in facts.items()})
+        require(bad == [], f"game {b}: the adapter's final state vs the C engine's: {bad}")
+    cpu = load_game(f"twixt(board_size={n})", device="cpu").new_initial_state()
+    history = [int(a) for a in padded[:, 0] if a >= 0]
+    t0 = time.perf_counter()
+    for a in history:
+        cpu.apply_action(a)
+    cpu_ms = (time.perf_counter() - t0) * 1e3 / len(history)
+    require(cpu.to_string() == strings[0], "the game on the CPU ends on the card's board")
+    traced = game.new_initial_state()
+    acts, busy = device_busy(lambda: [traced.apply_action(a) for a in history[:BUSY_STEPS]])
+    print(f"[host adapter] n={n}: {HOST_GAMES} full C games ({moves} moves, results "
+          f"{facts['result'].tolist()}) through TwixTState.apply_action on the card: {ms} ms a "
+          f"move; the first on the CPU {cpu_ms} ms a move; final strings equal render_py and "
+          f"the states the C engine's snapshots; under the profiler, {BUSY_STEPS} moves: "
+          f"{acts / BUSY_STEPS} device activities a move, the card busy {busy} of their span "
+          f"[{card}]")
+
+
+def replay_path(dev, card: str) -> None:
+    """Phase 28 (d): bit_replay of the C engine's games on the card, every
+    final leaf against the C engine's snapshot; the C engine's own rate."""
+    for n, games in REPLAY_ROWS:
+        t0 = time.perf_counter()
+        padded, facts = cases.c_games(n, [97 * n + b for b in range(games)])
+        prep = time.perf_counter() - t0
+        actions = torch.from_numpy(padded).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = bit_replay(n, actions)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        require(final.red.is_cuda, "the replay ran on the card")
+        bad = cases.replay_mismatches(final, n, facts)
+        valid = int((padded >= 0).sum())
+        t_max = padded.shape[0]
+        print(f"[host replay] n={n} {games} C games (seeds 97*n+b), T_max={t_max}: one "
+              f"bit_replay call on the card {secs} s, {secs / t_max * 1e3} ms a lockstep step, "
+              f"{valid} valid env-steps -> {valid / secs} valid env-steps/s; every final "
+              f"leaf equal to the C engine's snapshot: {not bad} {bad}; the C games and "
+              f"snapshots {prep} s on the host [{card}]")
+        require(bad == [], f"bit_replay at n={n} vs the C engine: {bad}")
+        if games == REPLAY_ROWS[0][1]:
+            acts, busy = device_busy(lambda: bit_replay(n, actions[:BUSY_STEPS]))
+            print(f"[host replay] n={n} B={games} under the profiler, {BUSY_STEPS} lockstep "
+                  f"steps: {acts / BUSY_STEPS} device activities a step, the card busy {busy} "
+                  f"of their span [{card}]")
+    n, seed, games = C_GAMES_ROW
+    t0 = time.perf_counter()
+    total, results = random_games(n, seed, games)
+    secs = time.perf_counter() - t0
+    require(sum(results) == games and results[geo.RESULT_OPEN] == 0, "the C games all end")
+    print(f"[host C engine] random_games n={n} x {games}: {secs} s -> {games / secs} games/s, "
+          f"{total / secs} moves/s on one host core; results {results}")
+
+
+def profile_path(dev, card: str) -> None:
+    """Phase 28 (f): utils.profiling.trace around a full-width search with
+    an annotate span; the trace file names the span and holds the card's
+    kernels."""
+    n, b, sims = PROFILE_ROW
+    net = create_net(n, device=dev)
+    evaluator = mcts.net_evaluator(call_net, n)
+    roots = tbit.bit_reset(n, b, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with profiling.trace(tmp):
+            with profiling.annotate(PROFILE_SPAN):
+                probs, _ = mcts.search_batch(net, roots, gen, evaluator=evaluator,
+                                             board_size=n, num_simulations=sims)
+                torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        files = list(pathlib.Path(tmp).glob("*.pt.trace.json"))
+        require(len(files) == 1, f"one trace file written: {files}")
+        size = files[0].stat().st_size
+        events = json.loads(files[0].read_text())["traceEvents"]
+    spans = [e for e in events if e.get("name") == PROFILE_SPAN]
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    print(f"[host profile] trace of search_batch n={n} batch={b} sims={sims} (128x6 bf16 net): "
+          f"{secs} s with the trace written (beside (e)'s programs), {size} bytes, {len(events)} events, {kernels} "
+          f"device kernels, span {PROFILE_SPAN!r} found {len(spans)} times [{card}]")
+    require(spans and kernels > 0, "the trace names the span and holds the card's kernels")
+    require(bool((probs.sum(-1) - 1).abs().max() < 1e-5), "the traced search's visits")
+
+
+@contextlib.contextmanager
+def example_programs(card: str):
+    """Phase 28 (e): the three examples as programs on the card, started on
+    entry and checked on exit (they run beside (f) only, so that (a)-(d)
+    are timed alone on the card and the host)."""
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for name, args in EXAMPLES.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", f"twixt_for_open_spiel_tpu_torch.examples.{name}", *args],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        yield
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            secs = time.perf_counter() - t0
+            lines = out.splitlines()
+            print(f"[host example] examples.{name} {' '.join(EXAMPLES[name])}: rc "
+                  f"{proc.returncode}, ended {secs} s after its start; last line {lines[-1:]} "
+                  f"[{card}]")
+            require(proc.returncode == 0, f"examples.{name} exits 0: {err[-2000:]}")
+            require(lines and {"example": "Utility for player 1 is",
+                               "arena": "A score", "mcts_example": "Returns: ["}[name]
+                    in lines[-1], f"examples.{name} ends with its result")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def host_path(dev, card: str) -> None:
+    """Phase 28: the host side on the card; no kernel of the port runs."""
+    zero_counts()
+    require(native.load() is not None and load_engine() is not None, "the C libraries")
+    golden_path(dev, card)
+    adapter_games_path(dev, card)
+    replay_path(dev, card)
+    with example_programs(card):
+        profile_path(dev, card)
+    no_kernel_launched("the host side")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1910,28 +2209,46 @@ def main() -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     t_start = time.perf_counter()
+    t_mark = [t_start]
+
+    def mark(phases: str) -> None:  # wall time of each group of phases
+        now = time.perf_counter()
+        print(f"[time] phases {phases}: {now - t_mark[0]} s")
+        t_mark[0] = now
+
     build_all()
     sass = sass_counts()
+    mark("1-2")
     bit = bitboard_path(dev, sass)
     tensor = tensor_path(dev, sass, bit["rates"])
     store = store_path(dev, bit["obs_bytes_per_s"])
+    mark("3-10")
     net_ms = net_path(dev, card)
     search_path(dev, card, net_ms)
     arena_path(dev, card)
+    mark("11-15")
     selfplay_equal_path(dev)
     train_equal_path(dev)
     selfplay_rate_path(dev, card)
+    mark("16-18")
     with driver_arms(dev, card):
         driver_path(dev, card)
+    mark("19 and 25")
     gumbel_equal_path(dev)
     arms_equal_path(dev)
     search_arms_rate_path(dev, card)
     arms_rate_path(dev, card)
     arena_arms_path(dev, card)
+    mark("20-24")
     shared_rollout_path(dev, card, bit["reports"][0], bit["rates"][HEADLINE])
+    mark("26 (a)")
     with dist_programs(dev, card):
         learned = shared_learner_path(dev, card)
+    mark("26 (b)-(d) and 27's programs")
     nccl_world_of_one_path(dev, card)
+    mark("27")
+    host_path(dev, card)
+    mark("28")
 
     print(f"[total] {time.perf_counter() - t_start} s from the build to here")
     print(json.dumps({"kernels": [*bit["reports"], tensor, store]}))

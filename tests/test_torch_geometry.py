@@ -83,10 +83,12 @@ def test_port_source_imports_no_jax():
     # and the test inputs that script shares
     files = sorted(PORT.rglob("*.py")) + [
         PORT.parent / "chip_smoke.py", PORT.parent / "tests" / "torch_port_cases.py"]
-    assert len(files) >= 22
+    assert len(files) >= 45
     assert {"mcts.py", "network.py", "convert.py", "arena.py", "selfplay.py",
             "serialization.py", "train_arena_gate.py", "launch.py", "learner_feed.py",
-            "selfplay_train.py"} <= {f.name for f in files}
+            "selfplay_train.py", "openspiel.py", "playthrough.py", "render.py", "strings.py",
+            "engine.py", "replay.py", "profiling.py", "example.py", "mcts_example.py"
+            } <= {f.name for f in files}
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -97,24 +99,29 @@ def test_port_source_imports_no_jax():
 
 def test_importing_port_loads_no_jax():
     # every module of the port, found on disk so a new one is never missed;
-    # importing them loads and builds no kernel and makes no process group
+    # importing them loads and builds no kernel or C library and makes no
+    # process group
     modules = sorted(
         f"twixt_for_open_spiel_tpu_torch.{sub}." + path.stem
-        for sub in ("ops", "models", "utils", "parallel", "examples")
+        for sub in ("ops", "models", "utils", "parallel", "examples", "game", "native")
         for path in (PORT / sub).glob("*.py") if path.stem != "__init__"
     ) + sorted(
         "twixt_for_open_spiel_tpu_torch." + path.stem
         for path in PORT.glob("*.py") if path.stem != "__init__"
     ) + ["twixt_for_open_spiel_tpu_torch.models", "twixt_for_open_spiel_tpu_torch.utils",
          "twixt_for_open_spiel_tpu_torch.parallel", "twixt_for_open_spiel_tpu_torch.examples",
+         "twixt_for_open_spiel_tpu_torch.game", "twixt_for_open_spiel_tpu_torch.native",
          "tests.torch_port_cases"]
-    assert len(modules) >= 22
+    assert len(modules) >= 45
     assert {"twixt_for_open_spiel_tpu_torch.models.selfplay",
             "twixt_for_open_spiel_tpu_torch.utils.serialization",
             "twixt_for_open_spiel_tpu_torch.train_arena_gate",
             "twixt_for_open_spiel_tpu_torch.parallel.launch",
             "twixt_for_open_spiel_tpu_torch.parallel.learner_feed",
-            "twixt_for_open_spiel_tpu_torch.examples.selfplay_train"} <= set(modules)
+            "twixt_for_open_spiel_tpu_torch.examples.selfplay_train",
+            "twixt_for_open_spiel_tpu_torch.game.openspiel",
+            "twixt_for_open_spiel_tpu_torch.native.engine",
+            "twixt_for_open_spiel_tpu_torch.ops.replay"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "import twixt_for_open_spiel_tpu_torch as tw\n"
@@ -127,6 +134,8 @@ def test_importing_port_loads_no_jax():
         "assert not bad, bad\n"
         "from twixt_for_open_spiel_tpu_torch.ops import _cuda\n"
         "assert _cuda.load.cache_info().currsize == 0\n"
+        "from twixt_for_open_spiel_tpu_torch import native\n"
+        "assert native._libs == {}\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized()\n"
     )

@@ -5,9 +5,12 @@ of the evaluators in ``tests/test_mcts_exact.py`` (the same float32
 operations, so both sides compute the same bits); a table net for the
 deterministic arena; the deterministic self-play chunks (PUCT, and the
 reuse and Gumbel arms) with their JSON record; a check that every arena
-move is legal; and what a spawned rank of the distributed learner runs
-(:func:`dist_rank` and its cases).  ``chip_smoke.py`` uses them on the card, where jax is
-not installed, so this module imports torch, numpy and the port only.
+move is legal; what a spawned rank of the distributed learner runs
+(:func:`dist_rank` and its cases); and for the host side, the golden
+playthrough's parser and the C engine's games with their final snapshots
+(:func:`c_games`, :func:`state_mismatches`).  ``chip_smoke.py`` uses them
+on the card, where jax is not installed, so this module imports torch,
+numpy and the port only.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import fcntl
 import hashlib
 import os
 import pathlib
+import re
 import time
 
 import numpy as np
@@ -28,6 +32,7 @@ from twixt_for_open_spiel_tpu_torch import parallel
 from twixt_for_open_spiel_tpu_torch.models import arena, convert, mcts
 from twixt_for_open_spiel_tpu_torch.models.network import AZNet, call_net, create_net
 from twixt_for_open_spiel_tpu_torch.models.selfplay import Sample, make_optimizer, selfplay_chunk
+from twixt_for_open_spiel_tpu_torch.native.engine import NativeEngine, random_game
 from twixt_for_open_spiel_tpu_torch.ops import bitboard, state, step
 from twixt_for_open_spiel_tpu_torch.ops import fused_bit_rollout as fbr
 from twixt_for_open_spiel_tpu_torch.ops import geometry as geo
@@ -181,6 +186,73 @@ def reuse_sequence(device, scenarios, board_size: int, num_simulations: int, reu
         played = torch.from_numpy(actions).int().to(device)
         bs, done, _ = bitboard.bit_step_auto_reset(bs, played, n)
     return out
+
+
+# The host side: BASELINE config 1's golden playthrough
+# (``tests/test_parity_playthrough.py``), the reference's win line
+# (twixt_test.cc:163-183) and the C engine's games for the replay soak.
+PLAYTHROUGH_FIXTURE = pathlib.Path(__file__).parent / "fixtures" / "playthrough_board8.txt"
+WIN_LINE = [21, 38, 15, 11, 27, 17, 42, 45, 48]
+
+
+def playthrough_structure(text: str):
+    """(actions, fully dumped state indices) of a playthrough file, read as
+    ``tests/test_parity_playthrough.py::parse_structure`` reads them."""
+    actions = [int(m) for m in re.findall(r"^action: (\d+)$", text, re.M)]
+    dumped = set()
+    lines = text.split("\n")
+    for i, line in enumerate(lines):
+        m = re.match(r"^# State (\d+)$", line)
+        if m and i + 1 < len(lines) and not lines[i + 1].startswith("# Apply action"):
+            dumped.add(int(m.group(1)))
+    return actions, dumped
+
+
+def c_games(n: int, seeds) -> tuple:
+    """The C engine's random games at board ``n``, one a seed: (their
+    histories padded with -1 to int32 [T_max, B], the C engine's final
+    snapshots {"color", "links", "blocked", "flags": [B, n*n]; "result",
+    "move_counter", "swapped": [B]}, in the port's dtypes)."""
+    histories, facts = [], {k: [] for k in ("color", "links", "blocked", "flags", "result",
+                                           "move_counter", "swapped")}
+    for seed in seeds:
+        actions, result = random_game(n, seed)
+        eng = NativeEngine(n)
+        for a in actions:
+            eng.apply(a)
+        if eng.result != result:
+            raise RuntimeError(f"C game {seed}: replayed result {eng.result} != {result}")
+        histories.append(actions)
+        for k, v in zip(("color", "links", "blocked", "flags"), eng.snapshot()):
+            facts[k].append(v)
+        facts["result"].append(result)
+        facts["move_counter"].append(eng.move_counter)
+        facts["swapped"].append(eng.swapped)
+    padded = np.full((max(map(len, histories)), len(histories)), -1, np.int32)
+    for b, h in enumerate(histories):
+        padded[: len(h), b] = h
+    facts = {k: np.asarray(v) for k, v in facts.items()}
+    facts.update(result=facts["result"].astype(np.int32),
+                 move_counter=facts["move_counter"].astype(np.int32))
+    return padded, facts
+
+
+def state_mismatches(s, n: int, facts: dict) -> list:
+    """Names of the snapshot fields where a canonical ``State`` with a
+    trailing env axis differs from :func:`c_games`' C snapshots."""
+    inner = slice(geo.PAD, geo.PAD + n)
+    got = {k: getattr(s, k)[inner, inner].reshape(n * n, -1).T.cpu().numpy()
+           for k in ("color", "links", "blocked", "flags")}
+    got.update(result=s.result.cpu().numpy(), move_counter=s.move_counter.cpu().numpy(),
+               swapped=s.swapped.cpu().numpy())
+    return [k for k in facts if not (got[k].dtype == facts[k].dtype
+                                     and np.array_equal(got[k], facts[k]))]
+
+
+def replay_mismatches(final, n: int, facts: dict) -> list:
+    """:func:`state_mismatches` of a replayed ``BitState`` (through
+    ``to_state``)."""
+    return state_mismatches(bitboard.to_state(final, n), n, facts)
 
 
 # The deterministic self-play chunk of the port's pins and ``chip_smoke.py``:

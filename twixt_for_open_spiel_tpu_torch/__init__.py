@@ -22,14 +22,30 @@ module's counterpart has the same name:
                               hand-written CUDA kernel
                               (``csrc/fused_tensor_rollout.cu``)
   ops/store_skeleton.py       the store-stream probe (``csrc/store_skeleton.cu``)
+  ops/replay.py               ``bit_replay``: a batch of padded action
+                              histories replayed in one lockstep loop
   ops/_cuda.py                builds the CUDA sources with nvcc at first use
+  game/                       the OpenSpiel-shaped host side: ``load_game``,
+                              ``TwixTGame``/``TwixTState`` on the canonical
+                              engine, the byte-exact board string and the
+                              golden playthrough (``playthrough.generate``)
+  native/                     the C host engine and renderer (pinned copies
+                              of the JAX package's sources), built with the
+                              system compiler at first use, loaded by ctypes
   models/                     the net, the PUCT search, the arena, self-play
                               and the learner step (plain torch)
-  utils/serialization.py      training checkpoints
+  utils/serialization.py      history replay of game states, tree
+                              snapshots, training checkpoints
+  utils/profiling.py          ``Throughput``, ``trace``, ``annotate`` on
+                              ``torch.profiler``
   parallel/                   the distributed learner on torch.distributed:
                               one rank a card, the env batch sharded over
                               the ranks, gradients all-reduced
-  examples/selfplay_train.py  the distributed self-play training front door
+  examples/                   ``example.py`` (a random game),
+                              ``mcts_example.py`` (MCTS bots), ``arena.py``
+                              (checkpoints head to head) and
+                              ``selfplay_train.py``, the distributed
+                              self-play training front door
   train_arena_gate.py         the training driver with its arena gates
 
 Each kernel's module holds its plain torch version: CPU tensors run it, CUDA
@@ -37,7 +53,7 @@ tensors launch the kernel or raise.  Entry points put their tensors on the
 card unless told otherwise.
 
 The package imports torch and numpy only: never jax, never the JAX package.
-Importing it loads and builds no kernel.
+Importing it loads and builds no kernel and no C library.
 """
 
 from twixt_for_open_spiel_tpu_torch.ops import geometry
