@@ -135,8 +135,8 @@ non-zero exit.
       ``arena_match(search="gumbel")`` against the random bot and
       ``arena_match(reuse_a=True)`` at 8 simulations, and
       ``arena_match_asym`` with Gumbel at 8 against PUCT at 16 (cut from
-      16 simulations, and from the JAX script's 16 against 64); every move checked against its state's legal mask,
-      the tallies;
+      16 simulations, and from the JAX script's 16 against 64); every move
+      checked against its state's legal mask, the tallies;
   25. (run beside phase 19, whose host loops leave the card idle) the
       driver as two more programs at phase 19's cut (three iterations,
       gates at 2 and 3): ``--search=puct_reuse --arena_search=gumbel`` and
@@ -202,6 +202,22 @@ non-zero exit.
       simulations) with an ``annotate`` span: the trace names the span and
       holds the card's kernels.
 
+  the benches and the checkpoint arenas (``bench.py``, ``bench_*.py``,
+  ``arena_checkpoints.py``, ``arena_gate_agreement.py``):
+  29. (a) ``python3 -m twixt_for_open_spiel_tpu_torch.bench`` as a program,
+      alone on the card, at its full rows: exit 0, one stdout line with
+      ``bench.py``'s keys and metric, K1 and K2 launched (the program's
+      counters), and the headline within 0.5-2x of phase 5's K1 rate at the
+      same row; then, in this process beside (d), (b) ``bench_bitboard`` in
+      full (K1 and K3 launched) and (c) ``bench_selfplay``'s iterations
+      (PUCT, Gumbel, reuse) and ``bench_search_scaling`` at 512:64,
+      config 5's width with the chunk cut to 1 ply and 1 timed iteration;
+      (d) ``arena_checkpoints`` and ``arena_gate_agreement`` (``gumbel:8``
+      and ``puct:8``, one program each, side by side) as programs on two
+      seeded 64x4 board-8 checkpoints written by ``save_training``, at
+      batch 64 and 8 simulations, every tally adding up.  The kernels line gives K1's, K2's
+      and K3's launches in (a) and (b) as ``bench_launches``.
+
 The net, search, arena, self-play, train, driver and host lines with a
 time end with the card's name and power limit (printed alone first).
 ``[time]`` lines give each group of phases' wall time, and the total time
@@ -224,6 +240,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -234,11 +251,12 @@ import time
 import torch
 import torch.distributed as dist
 
+from twixt_for_open_spiel_tpu_torch import bench, bench_bitboard, bench_search_scaling, bench_selfplay
 from twixt_for_open_spiel_tpu_torch import native, parallel
 from twixt_for_open_spiel_tpu_torch.game import SpielError, load_game, playthrough
 from twixt_for_open_spiel_tpu_torch.game.render import render_py
 from twixt_for_open_spiel_tpu_torch.models import arena, convert, mcts, selfplay
-from twixt_for_open_spiel_tpu_torch.models.network import call_net, create_net
+from twixt_for_open_spiel_tpu_torch.models.network import call_net, create_net, init_params
 from twixt_for_open_spiel_tpu_torch.native.engine import NativeEngine, load_engine, random_games
 from twixt_for_open_spiel_tpu_torch.ops import _cuda, _sass
 from twixt_for_open_spiel_tpu_torch.ops import bitboard as tbit
@@ -284,6 +302,8 @@ EQUALITY_CASES = [
     (8, 4096, 256, 0, False),
     (12, 4096, 128, 7, False),
     (24, 4096, 64, 0, False),  # full width
+    (12, 8192, 64, 1, False),  # two waves of blocks: bench_bitboard's rows
+    (24, 8192, 64, 2, False),
     (8, 1000, 100, 13, False),
     (5, 1, 200, 11, False),  # a single env: one warp
     (24, 8192, 16, 5, True),  # full width, the wire by TMA
@@ -408,6 +428,28 @@ EXAMPLES = {
     "arena": ["--board_size=8", "--batch=64", "--simulations=16", "--random_b"],
     "mcts_example": ["--game=twixt(board_size=5)", "--max_simulations=4"],
 }
+
+# --- the benches and the checkpoint arenas (phase 29) -----------------------
+# (a) the bench's headline against phase 5's K1 rate at the same row
+BENCH_HEADLINE_RATIO = (0.5, 2.0)
+# (c) config 5 at full width, its chunk cut from 16 plies to 1 and its timed
+# iterations from 3 to 1 (the two warm-up iterations stay)
+BENCH_CHUNK, BENCH_REPS = 1, 1
+SELFPLAY_ARMS = ([], ["--gumbel"], ["--reuse"])
+SCALING_CONFIGS = "512:64"
+# (d) two seeded 64x4 board-8 checkpoints (seed, iteration): a run's
+# directory and its best/; the arenas at the arena row's batch, 8 simulations
+# (cut from the JAX scripts' 256 and 64, and 16 against 64).  The agreement
+# script's two settings run as two programs side by side, each printing its
+# vs_init and vs_random lines: (module, flags, lines)
+CKPT_NET = (8, 64, 4)  # board, channels, blocks
+CKPT_SEEDS = {"run": 1, "best": 2}
+ARENA_FLAGS = ["--board_size=8", "--batch=64"]
+ARENA_PROGRAMS = [
+    ("arena_checkpoints", ["--sims=8"], 1),
+    ("arena_gate_agreement", ["--settings=gumbel:8"], 2),
+    ("arena_gate_agreement", ["--settings=puct:8"], 2),
+]
 
 
 def require(ok: bool, what: str) -> None:
@@ -2194,6 +2236,114 @@ def host_path(dev, card: str) -> None:
     no_kernel_launched("the host side")
 
 
+def bench_program(card: str, k1_ms: float) -> dict:
+    """Phase 29 (a): ``python3 -m twixt_for_open_spiel_tpu_torch.bench`` as a
+    program, alone on the card, at its full rows.  Returns its K1 and K2
+    launches."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "twixt_for_open_spiel_tpu_torch.bench"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        if line.startswith("[bench]"):
+            print(line)
+    require(proc.returncode == 0, f"the bench exits 0: {proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    require(len(lines) == 1, "the bench prints one line on stdout")
+    rec = json.loads(lines[0])
+    require(set(rec) == {"metric", "value", "unit", "vs_baseline"} and
+            rec["metric"] == bench.METRIC and rec["unit"] == "env-steps/s",
+            f"the bench's line has bench.py's keys and metric: {rec}")
+    k1, k2 = map(int, re.search(r"kernel launches: K1 (\d+), K2 (\d+)", proc.stderr).groups())
+    n, b = HEADLINE
+    phase5 = b * RATE_STEPS / k1_ms * 1e3
+    ratio = rec["value"] / phase5
+    print(f"[bench program] rc 0 in {secs} s: {lines[0]}; K1 launches {k1}, K2 launches {k2}; "
+          f"the headline {ratio} x phase 5's K1 rate at n={n} batch={b} ({phase5} env-steps/s) "
+          f"[{card}]")
+    require(k1 > 0 and k2 > 0, "the bench launched K1 and K2")
+    lo, hi = BENCH_HEADLINE_RATIO
+    require(lo <= ratio <= hi, f"the bench's headline within {lo}-{hi}x phase 5's K1 rate")
+    return {"K1": k1, "K2": k2}
+
+
+@contextlib.contextmanager
+def arena_programs(card: str, ckpt: str):
+    """Phase 29 (d): ``arena_checkpoints`` on a run's directory and its
+    ``best/``, and ``arena_gate_agreement`` on the run, once a setting, as
+    programs on the card, started on entry and checked on exit: the JAX
+    scripts' lines, every tally adding up."""
+    args = {"arena_checkpoints": [f"--a={ckpt}", f"--b={ckpt}/best"],
+            "arena_gate_agreement": [f"--ckpt={ckpt}", "--seed=0"]}
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for name, flags, lines in ARENA_PROGRAMS:
+            procs.append((f"{name} {' '.join([*ARENA_FLAGS, *flags])}", lines, subprocess.Popen(
+                [sys.executable, "-m", f"twixt_for_open_spiel_tpu_torch.{name}", *ARENA_FLAGS,
+                 *flags, *args[name]], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        yield
+        for what, lines, proc in procs:
+            out, err = proc.communicate(timeout=600)
+            secs = time.perf_counter() - t0
+            require(proc.returncode == 0, f"{what} exits 0: {err[-2000:]}")
+            recs = [json.loads(line) for line in out.splitlines()]
+            for rec in recs:
+                print(f"[arena program] {what}: {json.dumps(rec)} [{card}]")
+                require(rec["a_wins"] + rec["b_wins"] + rec["draws"] == rec["games"] == 64,
+                        f"{what}'s tally adds up")
+            require(len(recs) == lines, f"{what}'s lines")
+            print(f"[arena program] {what} ended {secs} s after its start")
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def benches_path(dev, card: str, k1_ms: float) -> dict:
+    """Phase 29: the benches and the checkpoint arenas.  Returns the
+    kernels' launches, counted in the bench program and in (b)."""
+    zero_counts()
+    counts = bench_program(card, k1_ms)
+
+    # (d) beside (b) and (c), which run in this process
+    with tempfile.TemporaryDirectory(prefix="twixt_ckpt_") as ckpt:
+        n, ch, blocks = CKPT_NET
+        for sub, seed in CKPT_SEEDS.items():
+            net = init_params(create_net(n, ch, blocks, device="cpu"), seed)
+            serialization.save_training(ckpt if sub == "run" else f"{ckpt}/{sub}", net,
+                                        selfplay.make_optimizer(net.parameters()), seed)
+        with arena_programs(card, ckpt), contextlib.redirect_stderr(sys.stdout):
+            t0 = time.perf_counter()
+            # (b) bench_bitboard in full
+            zero_counts()
+            require(bench_bitboard.main([]) == 0, "bench_bitboard")
+            k1, k3 = fbr.fused_bit_rollout.launches, ftr.fused_random_rollout.launches
+            print(f"[bench_bitboard] K1 launches {k1}, K3 launches {k3} [{card}]")
+            require(k1 > 0 and k3 > 0, "bench_bitboard launched K1 and K3")
+            counts = {"K1": counts["K1"] + k1, "K2": counts["K2"], "K3": k3}
+            # (c) the self-play benches at config 5's width, their depth cut
+            zero_counts()
+            parallel.initialize_world(device="cuda")  # bench_selfplay's world of one
+            try:
+                for flags in SELFPLAY_ARMS:
+                    cfg = {**bench_selfplay.config(bench_selfplay.parse_args(flags), 1),
+                           "chunk": BENCH_CHUNK}
+                    bench_selfplay.report(cfg, bench_selfplay.iterations(cfg, dev, BENCH_REPS),
+                                          1, dev)
+            finally:
+                dist.destroy_process_group()
+            require(bench_search_scaling.main([f"--configs={SCALING_CONFIGS}",
+                                               f"--chunk={BENCH_CHUNK}",
+                                               f"--reps={BENCH_REPS}"]) == 0,
+                    "bench_search_scaling")
+            no_kernel_launched("the self-play benches")
+            print(f"[time] phase 29 (b) and (c) in this process: {time.perf_counter() - t0} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2249,6 +2399,10 @@ def main() -> int:
     mark("27")
     host_path(dev, card)
     mark("28")
+    launches = benches_path(dev, card, bit["rates"][HEADLINE])
+    for report, k in zip([*bit["reports"], tensor], ("K1", "K2", "K3")):
+        report["bench_launches"] = launches[k]
+    mark("29")
 
     print(f"[total] {time.perf_counter() - t_start} s from the build to here")
     print(json.dumps({"kernels": [*bit["reports"], tensor, store]}))

@@ -87,7 +87,9 @@ def test_port_source_imports_no_jax():
     assert {"mcts.py", "network.py", "convert.py", "arena.py", "selfplay.py",
             "serialization.py", "train_arena_gate.py", "launch.py", "learner_feed.py",
             "selfplay_train.py", "openspiel.py", "playthrough.py", "render.py", "strings.py",
-            "engine.py", "replay.py", "profiling.py", "example.py", "mcts_example.py"
+            "engine.py", "replay.py", "profiling.py", "example.py", "mcts_example.py",
+            "bench.py", "bench_fused_bit.py", "bench_bitboard.py", "bench_selfplay.py",
+            "bench_search_scaling.py", "arena_checkpoints.py", "arena_gate_agreement.py"
             } <= {f.name for f in files}
     for path in files:
         for mod in _imported_modules(path):
@@ -121,7 +123,14 @@ def test_importing_port_loads_no_jax():
             "twixt_for_open_spiel_tpu_torch.examples.selfplay_train",
             "twixt_for_open_spiel_tpu_torch.game.openspiel",
             "twixt_for_open_spiel_tpu_torch.native.engine",
-            "twixt_for_open_spiel_tpu_torch.ops.replay"} <= set(modules)
+            "twixt_for_open_spiel_tpu_torch.ops.replay",
+            "twixt_for_open_spiel_tpu_torch.bench",
+            "twixt_for_open_spiel_tpu_torch.bench_fused_bit",
+            "twixt_for_open_spiel_tpu_torch.bench_bitboard",
+            "twixt_for_open_spiel_tpu_torch.bench_selfplay",
+            "twixt_for_open_spiel_tpu_torch.bench_search_scaling",
+            "twixt_for_open_spiel_tpu_torch.arena_checkpoints",
+            "twixt_for_open_spiel_tpu_torch.arena_gate_agreement"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "import twixt_for_open_spiel_tpu_torch as tw\n"
