@@ -2,12 +2,15 @@
 
     python3 chip_smoke.py
 
-Three kernel paths, each with its kernel's launch count set to 0 just before
-the path and read just after (launches made to compare a kernel with its
-plain version come before and do not count), then the net, the search and
-the arena, which run plain torch ops on the card (every launch count set
-to 0 before each and required to stay 0).  Any failure ends the run with a
-non-zero exit.
+Three rollout-kernel paths, each with its kernel's launch count set to 0
+just before the path and read just after (launches made to compare a kernel
+with its plain version come before and do not count), then the search's
+kernels (S1a ``bit_step``, S1b ``select_walk``, S1c ``backup_walk``) the
+same way, then the net, the search, the arena, self-play, training, the
+driver and the host side, which run torch ops and the search's kernels on
+the card: every launch count is set to 0 before each phase, and each names
+the kernels it may launch (the search's) and those it must.  Any failure
+ends the run with a non-zero exit.
 
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
   2. build every CUDA kernel from ``twixt_for_open_spiel_tpu_torch/csrc``
@@ -61,29 +64,44 @@ non-zero exit.
       outputs equal ``tests/fixtures/torch_port_net.json`` (<= 1e-5);
   12. the bf16 forward's time (median of 20, CUDA events) beside its
       bound, the convolutions' and Dense layers' FLOPs over 989 TFLOP/s;
-  13. ``search_batch`` with the table and uniform evaluators of
-      ``tests/test_mcts_exact.py`` over its scenarios, both backups and
-      both node-state gathers: root visits, ``root_q`` (<= 1e-5) and the
-      walks' iteration counts equal ``tests/fixtures/torch_port_search.json``;
-      ``one_rollout`` equals its JAX values; ``argmax`` takes the first
-      maximum on the card, an all -inf row included;
+  13. the search's kernels: every call of S1a, S1b and S1c in
+      ``search_batch`` with the bf16 net at config-5 width (board 12, batch
+      512, 64 simulations) under both backups and at board 24 (batch 256,
+      200 simulations, the walk) runs the kernel and its plain version on
+      copies of the same inputs, bit-equal (floats by bit pattern); then the
+      main path, config-5 searches under both backups, with the three
+      kernels' launches counted; each kernel's time (launches back to back)
+      and its plain version's on simulation 32's inputs, beside its bound
+      (the bytes this call's walks need); then ``search_batch`` with the
+      table and uniform evaluators of ``tests/test_mcts_exact.py`` over its
+      scenarios, both backups, every kernel call held to its plain version
+      again: root visits, ``root_q`` (<= 1e-5) and the walks' iteration
+      counts equal ``tests/fixtures/torch_port_search.json``;
+      ``one_rollout`` equals its JAX values, each of its ``step_bits``
+      (S1a through ``step_state``, to the games' ends) held to
+      ``step_bits_reference``; ``argmax`` takes the first maximum on the card, an all
+      -inf row included;
   14. ``search_batch`` with the bf16 net at board 12, batch 512, 64
       simulations, ``dirichlet_frac=0.25``: ms a search and a simulation,
-      the net calls' share (CUDA events around each), host syncs, peak
-      memory, and the invariants (visits sum to 64, none off the legal
-      set, |root_q| <= 1);
+      the net calls' share (CUDA events around each), the search kernels'
+      launches a simulation, peak memory, and the invariants (visits sum
+      to 64, none off the legal set, |root_q| <= 1); then one search with
+      CUDA's sync debug mode at "error" inside every simulation (a host
+      read there fails the run) and one under torch.profiler: host reads
+      and device activities a simulation;
   15. the deterministic table-net arena (board 5) against the tally and
       final-board digest of ``tests/fixtures/torch_port_arena.json``; the
       untrained full-width net against the random bot at board 8, batch
       64, 16 simulations: tally, plies and moves a second.
 
   self-play, the learner step and the driver (``models/selfplay.py``,
-  ``train_arena_gate.py``; plain torch on the card, no rollout kernel):
+  ``train_arena_gate.py``; torch and the search's kernels on the card):
   16. the deterministic chunk of ``tests/torch_port_cases`` (table net,
       board 5, greedy, no root noise) with and without the value
       bootstrap: the obs wire bit-equal, the policy, value and weight
       targets, the final-state digest and the debug aux equal to
-      ``tests/fixtures/torch_port_selfplay.json``;
+      ``tests/fixtures/torch_port_selfplay.json``, every S1 call and every
+      ``step_bits`` (auto-resets included) held to its plain version;
   17. ``loss_fn``, its gradients and three ``train_step``s under each clip
       in float32 with TF32 off, on seeded parameters converted from flax:
       the card against the CPU (metrics rtol 1e-5, gradients within 1e-5 of
@@ -98,7 +116,9 @@ non-zero exit.
       frames with weight 1 and peak memory; its invariants (policy rows
       sum to 1 with no mass off the legal set, weights in {0, 1},
       |value| <= 1, the wire's legal plane equal to the engine's mask of
-      the states replayed from the chunk's actions); then ``train_step``
+      the states replayed from the chunk's actions, each replayed
+      ``step_bits`` at B=512 held to ``step_bits_reference``); then
+      ``train_step``
       on its 16,384 frames: the median of 5 after a warm-up beside the
       bound (3 x the forward's FLOPs over 989 TFLOP/s), the loss, peak
       memory, and that the parameters moved;
@@ -110,9 +130,10 @@ non-zero exit.
       card.
 
   the Gumbel search and tree reuse with their arms (``models/mcts.py``,
-  ``arena.py``, ``selfplay.py``; plain torch on the card, no rollout kernel):
-  20. ``gumbel_search_batch`` on ``tests/test_gumbel_exact.py``'s cases with
-      its numpy-seeded Gumbels, both backups and both node-state gathers:
+  ``arena.py``, ``selfplay.py``; torch and the search's kernels on the card):
+  20. every kernel call held to its plain version, as in 13:
+      ``gumbel_search_batch`` on ``tests/test_gumbel_exact.py``'s cases with
+      its numpy-seeded Gumbels, both backups:
       the actions equal, the improved policy within 1e-6 and ``root_q``
       within 1e-5 of ``tests/fixtures/torch_port_gumbel.json``; and
       ``search_batch_reuse`` along ``tests/test_reuse_exact.py``'s move
@@ -125,8 +146,7 @@ non-zero exit.
   22. at config-5 width (board 12, B=512, 64 simulations, the 64x4 bf16
       net), three rounds in turns: ``search_batch``,
       ``gumbel_search_batch`` (max_considered 16) and ``search_batch_reuse``
-      after a played greedy ply (129 slots: the per-element gather, the
-      amask backup) with ``reused_envs`` and ``inherited_visits``; the
+      after a played greedy ply (129 slots: the amask backup) with ``reused_envs`` and ``inherited_visits``; the
       median ms a search and a simulation by CUDA events, peak memory;
   23. one config-5 chunk of each arm, cut from 32 to 8 plies: moves/s, s
       a ply, the search's share (CUDA events), peak memory, and the
@@ -178,7 +198,7 @@ non-zero exit.
       ``--resume``, and ``examples.selfplay_train`` for two iterations.
 
   the host side (``game/``, ``native/``, ``ops/replay.py``,
-  ``utils/profiling.py``, ``examples/``; plain torch on the card, the C
+  ``utils/profiling.py``, ``examples/``; torch and S1a on the card, the C
   engine and renderer on the host, built beside the nvcc builds):
   28. (a) BASELINE config 1: ``load_game("twixt", device="cuda")`` and
       ``playthrough.generate`` with the actions and sampling pattern of
@@ -219,11 +239,12 @@ non-zero exit.
       and K3's launches in (a) and (b) as ``bench_launches``.
 
 The net, search, arena, self-play, train, driver and host lines with a
-time end with the card's name and power limit (printed alone first).
+time end with the card's name and power limit (printed alone first);
+``[launches]`` lines give each phase's kernel launches.
 ``[time]`` lines give each group of phases' wall time, and the total time
 is printed before the two JSON lines.  The
 second-to-last line is a JSON object describing the kernels (K1 and K2
-as entries of their own), each with
+as entries of their own, then S1a-S1c), each with
 its time, its plain version's time and its bound (the least time the card
 could take: bytes over 3.35 TB/s or the SASS-counted instructions over
 the issue rates, the larger); the last is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -259,11 +280,13 @@ from twixt_for_open_spiel_tpu_torch.models import arena, convert, mcts, selfplay
 from twixt_for_open_spiel_tpu_torch.models.network import call_net, create_net, init_params
 from twixt_for_open_spiel_tpu_torch.native.engine import NativeEngine, load_engine, random_games
 from twixt_for_open_spiel_tpu_torch.ops import _cuda, _sass
+from twixt_for_open_spiel_tpu_torch.ops import bit_step as tstep
 from twixt_for_open_spiel_tpu_torch.ops import bitboard as tbit
 from twixt_for_open_spiel_tpu_torch.ops import fused_bit_rollout as fbr
 from twixt_for_open_spiel_tpu_torch.ops import fused_tensor_rollout as ftr
 from twixt_for_open_spiel_tpu_torch.ops import geometry as geo
 from twixt_for_open_spiel_tpu_torch.ops import rollout as troll
+from twixt_for_open_spiel_tpu_torch.ops import search_walk as twalk
 from twixt_for_open_spiel_tpu_torch.ops import state as tstate
 from twixt_for_open_spiel_tpu_torch.ops import observe as tobs
 from twixt_for_open_spiel_tpu_torch.ops import store_skeleton as sk
@@ -286,7 +309,7 @@ def _load_cases():
 cases = _load_cases()
 FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_rollout_digests.json"
 TENSOR_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_tensor_rollout_digests.json"
-KERNELS = ("fused_bit_rollout", "fused_tensor_rollout", "store_skeleton")
+KERNELS = ("fused_bit_rollout", "fused_tensor_rollout", "store_skeleton", "bit_step", "search")
 CSRC = "twixt_for_open_spiel_tpu_torch/csrc/"
 
 # The card's published peaks (H100 SXM, NVIDIA's data sheet): 3.35 TB/s of
@@ -346,7 +369,7 @@ ROLLOUT_ROW = (12, 4096, 8)  # random_rollout: board, batch, steps
 STORE_SHAPE = (12 * 30, 16, 2, 128, 32)  # rows, steps, subl, lanes, grid
 STORE_REPS = 20
 
-# --- the net, the search and the arena (plain torch on the card) ------------
+# --- the net, the search and the arena (torch and S1a-S1c on the card) ------
 NET_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_net.json"
 SEARCH_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_search.json"
 ARENA_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_arena.json"
@@ -365,7 +388,28 @@ NET_TOL = {"f32": 1e-4, "bf16": 2.0**-4}
 # the card's dense bfloat16 tensor-core peak (H100 SXM, NVIDIA's data sheet)
 BF16_FLOPS_PER_S = 989e12
 
-# --- self-play, the learner step and the driver (plain torch on the card) --
+# --- the search's kernels (S1a bit_step, S1b select_walk, S1c backup_walk) --
+# (board, batch, simulations, backup): searches with the bf16 128x6 net in
+# which every kernel call is held to its plain version on a copy of its
+# inputs: config 5's width under both backups, and board 24 under the walk
+# (201 slots)
+S1_CHECK_ROWS = [(12, 512, 64, "amask"), (12, 512, 64, "walk"), (24, 256, 200, "walk")]
+S1_TIMED_CALL = 32  # the kernels are timed on the inputs of this simulation
+S1_REPS = 50  # launches back to back, a run
+S1_PLAIN_REPS = 3
+# the card's float32 peak outside the tensor cores (H100 SXM, NVIDIA's data sheet)
+FP32_FLOPS_PER_S = 67e12
+S1_REPLACES = {  # the JAX search's XLA-fused counterparts (no Pallas kernel)
+    "bit_step": "twixt_for_open_spiel_tpu/ops/bitboard.py:276",
+    "select_walk": "twixt_for_open_spiel_tpu/models/mcts.py:368",
+    "backup_walk": "twixt_for_open_spiel_tpu/models/mcts.py:511",
+}
+S1_SOURCES = {"bit_step": "bit_step.cu", "select_walk": "search.cu", "backup_walk": "search.cu"}
+# every comparison of a search kernel with its plain version in this run:
+# name -> [calls, largest |kernel - plain|, every bit equal]
+S1_ERRS: dict = {}
+
+# --- self-play, the learner step and the driver ------------------------------
 SELFPLAY_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_selfplay.json"
 TRAIN_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_train.json"
 # card vs CPU in float32 with TF32 off, and card vs the JAX record's summaries
@@ -382,7 +426,7 @@ TRAIN_LR = 1e-3  # train_arena_gate's --lr
 DRIVER = {"board_size": 8, "batch": 64, "chunk_steps": 8, "simulations": 16, "channels": 64,
           "blocks": 4, "arena_batch": 32, "arena_sims": 4, "seed": 0}
 
-# --- the Gumbel and reuse searches and their arms (plain torch on the card) -
+# --- the Gumbel and reuse searches and their arms ----------------------------
 GUMBEL_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_gumbel.json"
 REUSE_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_reuse.json"
 ARMS_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_selfplay_arms.json"
@@ -471,6 +515,30 @@ def zero_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
     fbr.fused_bit_rollout.launches = fbr.fused_bit_rollout.obs_launches = 0
     ftr.fused_random_rollout.launches = sk.store_skeleton.launches = 0
+    tstep.bit_step.launches = twalk.select_walk.launches = twalk.backup_walk.launches = 0
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches since the counts were last set to 0."""
+    obs = fbr.fused_bit_rollout.obs_launches
+    return {"K1": fbr.fused_bit_rollout.launches - obs, "K2": obs,
+            "K3": ftr.fused_random_rollout.launches, "K4": sk.store_skeleton.launches,
+            "S1a": tstep.bit_step.launches, "S1b": twalk.select_walk.launches,
+            "S1c": twalk.backup_walk.launches}
+
+
+SEARCH_KERNELS = ("S1a", "S1b", "S1c")
+
+
+def launched_only(what: str, allowed=SEARCH_KERNELS, required=()) -> dict:
+    """Require that ``what`` launched no kernel outside ``allowed`` and each
+    of ``required`` at least once; print and return the counts."""
+    got = launch_counts()
+    others = {k: v for k, v in got.items() if v and k not in allowed}
+    require(not others, f"{what} launches only {allowed}: {got}")
+    require(all(got[k] > 0 for k in required), f"{what} launched {required}: {got}")
+    print(f"[launches] {what}: " + ", ".join(f"{k} {got[k]}" for k in allowed))
+    return got
 
 
 def bit_pairs(a_out, b_out) -> list:
@@ -745,8 +813,7 @@ def bitboard_path(dev, sass: dict) -> dict:
     obs_launches = fbr.fused_bit_rollout.obs_launches
     require(launches_main - obs_launches > 0 and obs_launches > 0,
             "the bitboard path launched both arms of its kernel")
-    require(ftr.fused_random_rollout.launches == sk.store_skeleton.launches == 0,
-            "the bitboard path launched only its own kernel")
+    launched_only("the bitboard path", allowed=("K1", "K2"))
 
     n, b = HEADLINE
     bs = tbit.bit_reset(n, b, dev)
@@ -876,8 +943,7 @@ def tensor_path(dev, sass: dict, k1_rates: dict) -> dict:
 
     launches_main = ftr.fused_random_rollout.launches
     require(launches_main > 0, "the canonical-engine path launched its kernel")
-    require(fbr.fused_bit_rollout.launches == sk.store_skeleton.launches == 0,
-            "the canonical-engine path launched only its own kernel")
+    launched_only("the canonical-engine path", allowed=("K3",))
 
     n, b = HEADLINE
     s0 = troll.batch_reset(n, b, dev)
@@ -925,8 +991,7 @@ def store_path(dev, obs_bytes_per_s: float) -> dict:
     require(torch.equal(last[0], want), "K4's timed output equals the plain version's")
     launches_main = sk.store_skeleton.launches
     require(launches_main > 0, "the probe path launched its kernel")
-    require(fbr.fused_bit_rollout.launches == ftr.fused_random_rollout.launches == 0,
-            "the probe path launched only its own kernel")
+    launched_only("the probe path", allowed=("K4",))
 
     sk.store_skeleton_reference(*STORE_SHAPE, device=dev)  # warm-up
     plain_ms = statistics.median(back_to_back_ms(
@@ -993,11 +1058,6 @@ def net_flops(net, batch: int) -> int:
     return flops
 
 
-def no_kernel_launched(what: str) -> None:
-    require(fbr.fused_bit_rollout.launches == ftr.fused_random_rollout.launches
-            == sk.store_skeleton.launches == 0, f"{what} runs no rollout kernel")
-
-
 def net_path(dev, card: str) -> float:
     """Phases 11-12: the net on the card against the CPU and the JAX anchor;
     the bf16 forward's time at full width.  Returns that time in ms."""
@@ -1043,48 +1103,301 @@ def net_path(dev, card: str) -> float:
           f"of {NET_REPS} ({min(ms)}-{max(ms)}); {flops / 1e9} GFLOP -> "
           f"{flops / med / 1e9} TFLOP/s; bound {bound_ms} ms at {BF16_FLOPS_PER_S / 1e12} "
           f"TFLOP/s bf16 dense (operations), share {bound_ms / med} [{card}]")
-    no_kernel_launched("the net path")
+    launched_only("the net path", allowed=())
     return med
 
 
-def search_path(dev, card: str, net_ms: float) -> None:
-    """Phases 13-14: search_batch against the JAX fixture (both backups,
-    both gathers), one_rollout against JAX's values; the full-width search's
-    time and invariants."""
+def diff(pairs) -> tuple:
+    """(largest |a - b| over tensor pairs, every bit equal): floats compared
+    by value and by bit pattern (the sign of zero included)."""
+    err, same = 0.0, True
+    for a, b in pairs:
+        require(a.shape == b.shape and a.dtype == b.dtype, "output shapes/dtypes")
+        if a.dtype.is_floating_point:
+            same &= torch.equal(a.view(torch.int32), b.view(torch.int32))
+            err = max(err, float((a - b).abs().max()) if a.numel() else 0.0)
+        else:
+            same &= torch.equal(a, b)
+            err = max(err, float((a.long() - b.long()).abs().max()) if a.numel() else 0.0)
+    return err, same
+
+
+@contextlib.contextmanager
+def held_to_plain(capture: dict | None = None):
+    """For the block, ``models/mcts.py``'s three kernel wrappers and
+    ``ops/bit_step.py::step_state`` (S1a as ``step_bits`` on the card) are
+    replaced by calls that run the kernel and its plain version on copies
+    of the same inputs, go on with the kernel's outputs, and add the
+    comparison to ``S1_ERRS``.  With ``capture``, the inputs of each
+    kernel's ``S1_TIMED_CALL``-th call in the block are kept there."""
+    real = {"select_walk": mcts.select_walk, "bit_step": mcts.bit_step,
+            "backup_walk": mcts.backup_walk, "step_state": tstep.step_state}
+    seen = dict.fromkeys(real, 0)
+
+    def note(name, result, inputs):
+        calls, worst, same = S1_ERRS.get(name, (0, 0.0, True))
+        S1_ERRS[name] = (calls + 1, max(worst, result[0]), same and result[1])
+        if capture is not None and name not in capture and seen[name] == S1_TIMED_CALL:
+            capture[name] = inputs
+        seen[name] += 1
+
+    def clone(tree):
+        return mcts.Tree(*(x.clone() for x in tree))
+
+    def select(tree, action, kid, kid_term, c_puct, iters=None):
+        inputs = (clone(tree), action.clone(), kid.clone(), kid_term.clone(), c_puct)
+        ref_iters = None if iters is None else iters.clone()
+        want = twalk.select_walk_reference(tree, action, kid, kid_term, c_puct, ref_iters)
+        got = real["select_walk"](tree, action, kid, kid_term, c_puct, iters)
+        pairs = list(zip(got, want)) + ([(iters, ref_iters)] if iters is not None else [])
+        note("select_walk", diff(pairs), inputs)
+        return got
+
+    def step(src, src_slot, action, dst, dst_slot, board_size, **kw):
+        require(src is dst, "the search expands in place")
+        ref = tuple(x.clone() for x in dst)
+        inputs = (tuple(x.clone() for x in dst), src_slot.clone(), action.clone(), dst_slot,
+                  board_size)
+        want = tstep.bit_step_reference(ref, src_slot, action, ref, dst_slot, board_size, **kw)
+        got = real["bit_step"](src, src_slot, action, dst, dst_slot, board_size, **kw)
+        note("bit_step", diff(list(zip(dst, ref)) + [(got, want.contiguous())]), inputs)
+        return got
+
+    def backup(tree, node, value, iters=None):
+        inputs = (clone(tree), node.clone(), value.clone())
+        ref = tree._replace(visit=tree.visit.clone(), value_sum=tree.value_sum.clone())
+        ref_iters = None if iters is None else iters.clone()
+        twalk.backup_walk_reference(ref, node, value, ref_iters)
+        real["backup_walk"](tree, node, value, iters)
+        pairs = [(tree.visit, ref.visit), (tree.value_sum, ref.value_sum)]
+        pairs += [(iters, ref_iters)] if iters is not None else []
+        note("backup_walk", diff(pairs), inputs)
+
+    def step_state(bs, board_size, action):
+        # step_bits' input is not written: both read the same tensors
+        want = tbit.step_bits_reference(bs, board_size, action)
+        got = real["step_state"](bs, board_size, action)
+        pairs = zip(tbit.bitstate_leaves(got), tbit.bitstate_leaves(want))
+        note("step_state", diff(pairs), (bs, board_size, action))
+        return got
+
+    mcts.select_walk, mcts.bit_step, mcts.backup_walk = select, step, backup
+    tstep.step_state = step_state
+    try:
+        yield
+    finally:
+        mcts.select_walk, mcts.bit_step, mcts.backup_walk = (
+            real["select_walk"], real["bit_step"], real["backup_walk"])
+        tstep.step_state = real["step_state"]
+
+
+def report_s1_equal(what: str) -> None:
+    print(f"[S1 equal] {what}: " + "; ".join(
+        f"{name} {calls} calls, max_abs_err {err}, bit-equal {same}"
+        for name, (calls, err, same) in sorted(S1_ERRS.items())))
+    require(all(same and err == 0 for _, err, same in S1_ERRS.values()),
+            f"a search kernel equals its plain version ({what})")
+
+
+def s1_roots(n: int, b: int, dev):
+    """Roots part-way into random games (the plain rollout: no kernel)."""
+    return tbit.bit_random_rollout(3, n, 24 if n <= 12 else 60, tbit.bit_reset(n, b, dev))[0]
+
+
+def s1_bounds(captured: dict, card: str) -> dict:
+    """The least time of each kernel on its captured inputs: the bytes the
+    function moves (each input read once, each output written once, what
+    this call's walks need) over 3.35 TB/s, against its float operations
+    over the float32 peak.  Returns name -> (bound_ms, bound_by)."""
+    out = {}
+    src, slot, action, dst_slot, n = captured["bit_step"]
+    b = action.shape[0]
+    # a source slot in, the stepped slot out, the slot, action and mask
+    nbytes = 2 * bit_state_bytes(n, b) + 16 * b + b * n * n
+    out["bit_step"] = (nbytes / HBM_BYTES_PER_S * 1e3, "bytes")
+
+    tree, a0, k0, kt0, c_puct = captured["select_walk"]
+    b, nodes = tree.visit.shape
+    a_dim = tree.uprior.shape[-1]
+    leaf, _, _ = twalk.select_walk_reference(tree, a0, k0, kt0, c_puct)
+    # a descent reads the node's visit and prior row, every slot's link and
+    # each linked slot's parent, each child's visit, terminal, value and edge
+    # prior, the chosen child's action; the walk visits the path below the
+    # root (amask tree)
+    env = torch.arange(b, device=leaf.device)
+    path = tree.amask[env, leaf].clone()
+    path[:, 0] = False
+    kids = torch.zeros((b, nodes + 1), dtype=torch.int64, device=leaf.device).scatter_add_(
+        1, torch.where(tree.linked, tree.parent, nodes).clamp_min(0),
+        torch.ones((b, nodes), dtype=torch.int64, device=leaf.device))[:, :nodes]
+    env_descents = path.sum(1)
+    descents = int(env_descents.sum())
+    parents_read = int((env_descents * tree.linked.sum(1)).sum())
+    children = int((kids * path).sum())
+    nbytes = (17 * b + 24 * b + descents * (4 + 4 * a_dim + nodes + 9) + 8 * parents_read
+              + 13 * children)
+    flops = descents * 3 * a_dim + 8 * children
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    out["select_walk"] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+    tree, node, value = captured["backup_walk"]
+    steps, live = 0, node.clone()
+    while bool((live >= 0).any()):  # each env's path length, on the host
+        steps += int((live >= 0).sum())
+        live = torch.where(live >= 0, tree.parent.gather(1, live.clamp_min(0)[:, None])[:, 0], -1)
+    # a node: visit and value read and written, its parent read; the leaf and value
+    nbytes = steps * (8 + 8 + 8) + 12 * node.shape[0]
+    out["backup_walk"] = (nbytes / HBM_BYTES_PER_S * 1e3, "bytes")
+    return out
+
+
+def search_kernels_path(dev, card: str) -> list:
+    """Phase 13 (first part): S1a-S1c against their plain versions on every
+    call of full-width searches; the main path (config-5 searches under
+    both backups) with the launch counts; each kernel's time, plain time
+    and bound on one simulation's inputs.  Returns the kernels' reports."""
+    captured = {}
+    for n, b, sims, backup in S1_CHECK_ROWS:
+        net = create_net(n, device=dev)
+        roots = s1_roots(n, b, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        with held_to_plain(captured if (n, backup) != (24, "walk") else None):
+            probs, _, stats = mcts.search_batch(
+                net, roots, gen, evaluator=mcts.net_evaluator(call_net, n), board_size=n,
+                num_simulations=sims, dirichlet_frac=0.25, backup=backup, return_stats=True)
+        require(bool(((probs * sims).round().sum(-1) == sims).all()), "root visits")
+        report_s1_equal(f"search_batch n={n} batch={b} sims={sims} backup={backup}, walks "
+                        f"{stats}, {time.perf_counter() - t0} s")
+
+    # the main path: config-5 searches, each kernel's launches counted
+    n, b, sims, _ = S1_CHECK_ROWS[0]
+    net = create_net(n, device=dev)
+    roots = s1_roots(n, b, dev)
     zero_counts()
+    for backup in ("amask", "walk"):
+        mcts.search_batch(net, roots, torch.Generator(device=dev).manual_seed(0),
+                          evaluator=mcts.net_evaluator(call_net, n), board_size=n,
+                          num_simulations=sims, dirichlet_frac=0.25, backup=backup)
+    torch.cuda.synchronize()
+    counts = launched_only(f"the config-5 searches (n={n} batch={b} sims={sims}, amask and walk)",
+                           required=SEARCH_KERNELS)
+
+    bounds = s1_bounds(captured, card)
+    src, slot, action, dst_slot, bn = captured["bit_step"]
+    tree, a0, k0, kt0, c_puct = captured["select_walk"]
+    btree, node, value = captured["backup_walk"]
+    ref_bufs = tuple(x.clone() for x in src)
+    ref_tree = mcts.Tree(*(x.clone() for x in btree))
+    runs = {
+        "bit_step": (lambda: tstep.bit_step(src, slot, action, src, dst_slot, bn),
+                     lambda: tstep.bit_step_reference(ref_bufs, slot, action, ref_bufs, dst_slot,
+                                                      bn)),
+        "select_walk": (lambda: twalk.select_walk(tree, a0, k0, kt0, c_puct),
+                        lambda: twalk.select_walk_reference(tree, a0, k0, kt0, c_puct)),
+        "backup_walk": (lambda: twalk.backup_walk(btree, node, value),
+                        lambda: twalk.backup_walk_reference(ref_tree, node, value)),
+    }
+    letter = {"bit_step": "S1a", "select_walk": "S1b", "backup_walk": "S1c"}
+    reports = []
+    for name, (kernel, plain) in runs.items():
+        kernel()  # warm-up
+        ms = statistics.median(back_to_back_ms(kernel, S1_REPS))
+        plain()
+        plain_ms = statistics.median(timed_ms(plain, S1_PLAIN_REPS))
+        bound_ms, by = bounds[name]
+        calls, err, _ = S1_ERRS[name]
+        print(f"[S1 rate] {letter[name]} {name} on simulation {S1_TIMED_CALL}'s inputs of the "
+              f"config-5 search (n={n} batch={b}): kernel {ms} ms a launch ({S1_REPS} back to "
+              f"back), plain {plain_ms} ms; bound {bound_ms} ms ({by}); launches on the main "
+              f"path {counts[letter[name]]} [{card}]")
+        reports.append({"name": name, "route": "cuda", "source": CSRC + S1_SOURCES[name],
+                        "replaces": S1_REPLACES[name], "launches": counts[letter[name]],
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": by, "library_ms": None})
+    return reports
+
+
+def simulation_reads(dev, card: str, net, roots, evaluator, n: int) -> None:
+    """Phase 14's host reads: one search with CUDA's sync debug mode set to
+    "error" inside every simulation (any host read there raises), and one
+    under torch.profiler: host reads (``aten::_local_scalar_dense``) and
+    device activities a simulation."""
+    real = mcts._make_simulate
+
+    def strict(**kw):
+        simulate = real(**kw)
+
+        def run(sim, tree):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                simulate(sim, tree)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return run
+
+    def search():
+        out = mcts.search_batch(net, roots, torch.Generator(device=dev).manual_seed(1),
+                                evaluator=evaluator, board_size=n,
+                                num_simulations=SEARCH_SIMS, dirichlet_frac=0.25)
+        torch.cuda.synchronize()
+        return out
+
+    mcts._make_simulate = strict
+    try:
+        search()
+    finally:
+        mcts._make_simulate = real
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        search()
+    events = prof.events()
+    reads = sum(e.name == "aten::_local_scalar_dense" for e in events)
+    device = sum(e.device_type.name == "CUDA" for e in events)
+    print(f"[search reads] search_batch n={n} batch={roots.red.shape[1]} sims={SEARCH_SIMS}: no "
+          f"host read inside any simulation (sync debug mode 'error' around each); under the "
+          f"profiler {reads} host reads in the search = {reads / SEARCH_SIMS} a simulation (the "
+          f"Dirichlet draw's rounds), {device} device activities = {device / SEARCH_SIMS} a "
+          f"simulation [{card}]")
+
+
+def search_path(dev, card: str, net_ms: float) -> None:
+    """Phases 13-14: search_batch against the JAX fixture (both backups;
+    every kernel call held to its plain version), one_rollout against
+    JAX's values (its steps held too); the full-width search's time, host
+    reads, launches and invariants."""
     row = torch.full((2, 7), -torch.inf, device=dev)
     row[1, 3:] = 2.0
     require(row.argmax(-1).tolist() == [0, 3], "argmax takes the first maximum on the card")
     rec = json.loads(SEARCH_FIXTURE.read_text())
-    dense = mcts._DENSE_GATHER_MAX_NODES
-    for case in rec["search"]:
-        n, sims, kind = case["board_size"], case["num_simulations"], case["evaluator"]
-        roots = cases.scenario_roots(case["scenarios"], n, dev)
-        for backup in ("amask", "walk"):
-            for gather, limit in (("dense", dense), ("gather", 0)):
-                mcts._DENSE_GATHER_MAX_NODES = limit
+    with held_to_plain():
+        for case in rec["search"]:
+            n, sims, kind = case["board_size"], case["num_simulations"], case["evaluator"]
+            roots = cases.scenario_roots(case["scenarios"], n, dev)
+            for backup in ("amask", "walk"):
                 probs, root_q, stats = mcts.search_batch(
                     None, roots, torch.Generator(device=dev).manual_seed(0),
                     evaluator=cases.EVALUATORS[kind](n * n), board_size=n,
                     num_simulations=sims, dirichlet_frac=0.0, backup=backup,
                     return_stats=True)
-                mcts._DENSE_GATHER_MAX_NODES = dense
                 visits = (probs * sims).round().long().cpu()
                 q_err = float((root_q.cpu() - torch.tensor(case["root_q"])).abs().max())
                 same = torch.equal(visits, torch.tensor(case["visits"]))
-                print(f"[search equal] n={n} sims={sims} {kind} {backup} {gather}: visits "
+                print(f"[search equal] n={n} sims={sims} {kind} {backup}: visits "
                       f"{'equal' if same else 'DIFFER'} (envs {len(case['scenarios'])}), "
                       f"|root_q - JAX| {q_err}, walks {stats}")
-                require(same, f"root visits vs JAX at n={n} sims={sims} {kind} {backup} {gather}")
+                require(same, f"root visits vs JAX at n={n} sims={sims} {kind} {backup}")
                 require(q_err <= 1e-5, "root_q vs JAX")
                 want_bk = case["backup_iters"] if backup == "walk" else 0
                 require(stats == {"sel_iters": case["sel_iters"], "backup_iters": want_bk},
                         "walk iterations vs JAX")
-    for case in rec["rollout"]:
-        n = case["board_size"]
-        got = mcts.one_rollout(cases.scenario_roots(case["scenarios"], n, dev), n, case["seed"])
-        print(f"[search equal] one_rollout n={n} seed={case['seed']}: {got.tolist()}")
-        require(got.cpu().tolist() == case["values"], "one_rollout vs JAX")
+        for case in rec["rollout"]:
+            n = case["board_size"]
+            got = mcts.one_rollout(cases.scenario_roots(case["scenarios"], n, dev), n,
+                                   case["seed"])
+            print(f"[search equal] one_rollout n={n} seed={case['seed']}: {got.tolist()}")
+            require(got.cpu().tolist() == case["values"], "one_rollout vs JAX")
+    report_s1_equal("the search fixture's cases, both backups; one_rollout's steps")
 
     n, b = NET_ROW
     net = create_net(n, device=dev)
@@ -1109,6 +1422,7 @@ def search_path(dev, card: str, net_ms: float) -> None:
                                  return_stats=True)
 
     search()  # warm-up
+    zero_counts()  # the main path: count only its launches
     torch.cuda.reset_peak_memory_stats()
     runs, shares = [], []
     for _ in range(SEARCH_REPS):
@@ -1119,6 +1433,8 @@ def search_path(dev, card: str, net_ms: float) -> None:
         runs.append((time.perf_counter() - t0) * 1e3)
         shares.append(sum(a.elapsed_time(z) for a, z in net_events) / runs[-1])
         require(len(net_events) == SEARCH_SIMS + 1, "one net call a simulation and the root")
+    counts = launched_only("the search path", required=("S1a", "S1b"))
+    kernels = sum(counts[k] for k in SEARCH_KERNELS) / (SEARCH_REPS * SEARCH_SIMS)
     legal = tbit.bit_legal_mask_flat(roots, roots.current_player.clamp(0, 1), n).T
     visits = (probs * SEARCH_SIMS).round()
     require(bool((visits.sum(-1) == SEARCH_SIMS).all()), "root visits sum to the simulations")
@@ -1126,14 +1442,14 @@ def search_path(dev, card: str, net_ms: float) -> None:
     require(bool(torch.isfinite(root_q).all()) and bool((root_q.abs() <= 1).all()), "|root_q| <= 1")
     med = statistics.median(runs)
     print(f"[search rate] search_batch n={n} batch={b} sims={SEARCH_SIMS} bf16 net, "
-          f"dirichlet_frac=0.25, backup auto (amask), dense gather: median {med} ms of {runs} "
+          f"dirichlet_frac=0.25, backup auto (amask): median {med} ms of {runs} "
           f"-> {med / SEARCH_SIMS} ms a simulation, {b * SEARCH_SIMS / med * 1e3} "
           f"simulations/s; net calls {statistics.median(shares)} of the time "
           f"(CUDA events around each call; {SEARCH_SIMS + 1} x the [net rate] median = "
-          f"{(SEARCH_SIMS + 1) * net_ms / med}); host syncs {stats['sel_iters']} selection "
-          f"walk iterations = {stats['sel_iters'] / SEARCH_SIMS} a simulation; peak memory "
+          f"{(SEARCH_SIMS + 1) * net_ms / med}); walks {stats}; search kernels {kernels} a "
+          f"simulation (S1a, S1b, S1c); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**20} MiB; invariants hold [{card}]")
-    no_kernel_launched("the search path")
+    simulation_reads(dev, card, net, roots, mcts.net_evaluator(call_net, n), n)
 
 
 def arena_path(dev, card: str) -> None:
@@ -1171,7 +1487,7 @@ def arena_path(dev, card: str) -> None:
           f"sims={sims}: {dict((k, got[k]) for k in ('a_wins', 'b_wins', 'draws', 'a_score'))}, "
           f"{got['moves']} lockstep plies, {env_moves} moves played in {s} s -> "
           f"{got['moves'] / s} plies/s, {env_moves / s} moves/s [{card}]")
-    no_kernel_launched("the arena path")
+    launched_only("the arena path", required=("S1a", "S1b"))
 
 
 def selfplay_equal_path(dev) -> None:
@@ -1179,7 +1495,8 @@ def selfplay_equal_path(dev) -> None:
     zero_counts()
     rec = json.loads(SELFPLAY_FIXTURE.read_text())
     for vb, want in rec["chunks"].items():
-        final, sample, aux = cases.deterministic_chunk(dev, float(vb), debug_trace=True)
+        with held_to_plain():
+            final, sample, aux = cases.deterministic_chunk(dev, float(vb), debug_trace=True)
         got = cases.sample_record(final, sample, aux)
         same = {k: got[k] == want[k] for k in ("obs_sha256", "obs_shape", "policy", "value",
                                               "weight", "final_digest")}
@@ -1189,7 +1506,8 @@ def selfplay_equal_path(dev) -> None:
               f"no root noise, value_bootstrap={vb}: {same}; frames with weight 1 "
               f"{int((sample.weight == 1).sum())} of {sample.weight.numel()}")
         require(all(same.values()), f"the deterministic chunk vs JAX at value_bootstrap={vb}")
-    no_kernel_launched("the self-play chunk")
+    report_s1_equal("the deterministic chunks' searches and steps")
+    launched_only("the self-play chunk", required=("S1a", "S1b"))
 
 
 def leaf_err(got: dict, want: dict) -> float:
@@ -1267,7 +1585,7 @@ def train_equal_path(dev) -> None:
               f"{'within' if close else 'OUTSIDE'} rtol {TRAIN_TOL['param_rtol']} atol "
               f"{TRAIN_TOL['param_atol']}")
         require(close, "the microbatched step vs the monolithic step")
-    no_kernel_launched("the train step")
+    launched_only("the train step's chunk", required=("S1a", "S1b"))
 
 
 def selfplay_rate_path(dev, card: str) -> None:
@@ -1308,11 +1626,16 @@ def selfplay_rate_path(dev, card: str) -> None:
     search_s = sum(a.elapsed_time(z) for a, z in search_events) / 1e3
     require(len(search_events) == steps, "one search a ply")
 
-    # invariants, against the states replayed from the chunk's actions
+    # invariants, against the states replayed from the chunk's actions, each
+    # step (S1a) held to the plain step on the same inputs
     states, bs = [], roots
-    for a in aux["actions"]:
-        states.append(bs)
-        bs = tbit.bit_step_auto_reset(bs, a, n)[0]
+    held = S1_ERRS.get("step_state", (0,))[0]
+    with held_to_plain():
+        for a in aux["actions"]:
+            states.append(bs)
+            bs = tbit.bit_step_auto_reset(bs, a, n)[0]
+    require(S1_ERRS["step_state"][0] - held == steps, "every replayed step held to its plain version")
+    report_s1_equal(f"the config-5 chunk's {steps} steps replayed (n={n} batch={b})")
     require(tbit.state_digest(bs) == tbit.state_digest(final), "the replay ends at the final state")
     pk = sample.obs.reshape(steps, b, 12, n + 2 * geo.PAD)
     wire_legal = tobs.unpack_legal_words_flat(tobs.legal_words_from_obs(pk), n)
@@ -1352,7 +1675,7 @@ def selfplay_rate_path(dev, card: str) -> None:
           f"{BF16_FLOPS_PER_S / 1e12} TFLOP/s, operations), share {bound_ms / med}; loss {loss}; "
           f"peak memory {peak} MiB; parameters moved {moved} [{card}]")
     require(torch.isfinite(torch.tensor(loss)).item() and moved, "a finite loss, moved parameters")
-    no_kernel_launched("the config-5 chunk and train step")
+    launched_only("the config-5 chunk and train step", required=("S1a", "S1b"))
 
 
 def driver_path(dev, card: str) -> None:
@@ -1408,9 +1731,15 @@ def driver_path(dev, card: str) -> None:
 
 def gumbel_equal_path(dev) -> None:
     """Phase 20: gumbel_search_batch and search_batch_reuse against the JAX
-    fixtures, both backups and both node-state gathers."""
+    fixtures, both backups, every kernel call held to its plain version."""
     zero_counts()
-    dense = mcts._DENSE_GATHER_MAX_NODES
+    with held_to_plain():
+        gumbel_reuse_cases(dev)
+    report_s1_equal("the Gumbel and reuse fixtures' cases, both backups")
+    launched_only("the Gumbel and reuse searches", required=SEARCH_KERNELS)
+
+
+def gumbel_reuse_cases(dev) -> None:
     rec = json.loads(GUMBEL_FIXTURE.read_text())
     n = rec["board_size"]
     roots = cases.scenario_roots(rec["scenarios"], n, dev)
@@ -1418,45 +1747,38 @@ def gumbel_equal_path(dev) -> None:
         sims, mc = case["num_simulations"], case["max_considered"]
         noise = torch.from_numpy(cases.gumbel_case_noise(sims, mc, len(rec["scenarios"])))
         for backup in ("amask", "walk"):
-            for gather, limit in (("dense", dense), ("gather", 0)):
-                mcts._DENSE_GATHER_MAX_NODES = limit
-                action, improved, root_q = mcts.gumbel_search_batch(
-                    None, roots, torch.Generator(device=dev).manual_seed(0),
-                    evaluator=cases.EVALUATORS["table"](n * n), board_size=n,
-                    num_simulations=sims, max_considered=mc, gumbel_noise=noise.to(dev),
-                    backup=backup)
-                mcts._DENSE_GATHER_MAX_NODES = dense
-                same = action.cpu().tolist() == case["action"]
-                p_err = float((improved.cpu() - torch.tensor(case["improved"])).abs().max())
-                q_err = float((root_q.cpu() - torch.tensor(case["root_q"])).abs().max())
-                print(f"[gumbel equal] n={n} sims={sims} max_considered={mc} {backup} {gather}: "
-                      f"actions {'equal' if same else 'DIFFER'}, |improved - JAX| {p_err} "
-                      f"(tolerance {GUMBEL_TOL['improved']}), |root_q - JAX| {q_err}")
-                require(same and p_err <= GUMBEL_TOL["improved"]
-                        and q_err <= GUMBEL_TOL["root_q"], f"gumbel vs JAX at {sims}/{mc}")
+            action, improved, root_q = mcts.gumbel_search_batch(
+                None, roots, torch.Generator(device=dev).manual_seed(0),
+                evaluator=cases.EVALUATORS["table"](n * n), board_size=n,
+                num_simulations=sims, max_considered=mc, gumbel_noise=noise.to(dev),
+                backup=backup)
+            same = action.cpu().tolist() == case["action"]
+            p_err = float((improved.cpu() - torch.tensor(case["improved"])).abs().max())
+            q_err = float((root_q.cpu() - torch.tensor(case["root_q"])).abs().max())
+            print(f"[gumbel equal] n={n} sims={sims} max_considered={mc} {backup}: "
+                  f"actions {'equal' if same else 'DIFFER'}, |improved - JAX| {p_err} "
+                  f"(tolerance {GUMBEL_TOL['improved']}), |root_q - JAX| {q_err}")
+            require(same and p_err <= GUMBEL_TOL["improved"]
+                    and q_err <= GUMBEL_TOL["root_q"], f"gumbel vs JAX at {sims}/{mc}")
 
     rec = json.loads(REUSE_FIXTURE.read_text())
     for seq in rec["sequences"]:
         sims, cap, kind = seq["num_simulations"], seq["reuse_cap"], seq["evaluator"]
         for backup in ("amask", "walk"):
-            for gather, limit in (("dense", dense), ("gather", 0)):
-                mcts._DENSE_GATHER_MAX_NODES = limit
-                got = cases.reuse_sequence(dev, rec["scenarios"], rec["board_size"], sims, cap,
-                                           kind, backup, len(seq["moves"]))
-                mcts._DENSE_GATHER_MAX_NODES = dense
-                same = all(
-                    v.tolist() == w["visits"] and a.tolist() == w["actions"]
-                    and st == {"reused_envs": w["reused_envs"],
-                               "inherited_visits": w["inherited_visits"]}
-                    for (v, _, st, a), w in zip(got, seq["moves"]))
-                q_err = max(float(abs(q - torch.tensor(w["root_q"]).numpy()).max())
-                            for (_, q, _, _), w in zip(got, seq["moves"]))
-                print(f"[reuse equal] n={rec['board_size']} sims={sims} cap={cap} {kind} "
-                      f"{backup} {gather}, {len(got)} moves: root visits and stats "
-                      f"{'equal' if same else 'DIFFER'} at every move, |root_q - JAX| {q_err}; "
-                      f"reused envs {[st['reused_envs'] for _, _, st, _ in got]}")
-                require(same and q_err <= 1e-5, f"the reuse sequence vs JAX ({sims}/{cap} {kind})")
-    no_kernel_launched("the Gumbel and reuse searches")
+            got = cases.reuse_sequence(dev, rec["scenarios"], rec["board_size"], sims, cap,
+                                       kind, backup, len(seq["moves"]))
+            same = all(
+                v.tolist() == w["visits"] and a.tolist() == w["actions"]
+                and st == {"reused_envs": w["reused_envs"],
+                           "inherited_visits": w["inherited_visits"]}
+                for (v, _, st, a), w in zip(got, seq["moves"]))
+            q_err = max(float(abs(q - torch.tensor(w["root_q"]).numpy()).max())
+                        for (_, q, _, _), w in zip(got, seq["moves"]))
+            print(f"[reuse equal] n={rec['board_size']} sims={sims} cap={cap} {kind} "
+                  f"{backup}, {len(got)} moves: root visits and stats "
+                  f"{'equal' if same else 'DIFFER'} at every move, |root_q - JAX| {q_err}; "
+                  f"reused envs {[st['reused_envs'] for _, _, st, _ in got]}")
+            require(same and q_err <= 1e-5, f"the reuse sequence vs JAX ({sims}/{cap} {kind})")
 
 
 def arms_equal_path(dev) -> None:
@@ -1476,7 +1798,7 @@ def arms_equal_path(dev) -> None:
               f"root noise{', zero Gumbels' if search == 'gumbel' else ''}, value_bootstrap="
               f"{rec['value_bootstrap']}: {same}; |policy - JAX| {p_err} (tolerance {tol})")
         require(all(same.values()) and p_err <= tol, f"the {search} chunk vs JAX")
-    no_kernel_launched("the arms' chunks")
+    launched_only("the arms' chunks", required=("S1a", "S1b"))
 
 
 def cuda_timed(fn, *args, **kwargs):
@@ -1552,10 +1874,9 @@ def search_arms_rate_path(dev, card: str) -> None:
           f"{med['gumbel_search_batch'] / sims} ms a simulation (ratio "
           f"{med['gumbel_search_batch'] / med['search_batch']}), peak "
           f"{peak['gumbel_search_batch']} MiB [{card}]")
-    gather = "per-element" if nodes > mcts._DENSE_GATHER_MAX_NODES else "dense"
     backup = "amask" if mcts._resolve_backup("auto", nodes) else "walk"
     print(f"[reuse rate] config-5 width: n={n} batch={b} sims={sims} reuse_cap {sims + 1} "
-          f"({nodes} slots, {gather} gather, {backup} backup): the first (cold) call {c_ms} ms "
+          f"({nodes} slots, {backup} backup): the first (cold) call {c_ms} ms "
           f"(reused {cold['reused_envs']}); after a played greedy ply median "
           f"{med['search_batch_reuse']} ms of {ms['search_batch_reuse']} -> "
           f"{med['search_batch_reuse'] / sims} ms a simulation (ratio to search_batch "
@@ -1563,7 +1884,7 @@ def search_arms_rate_path(dev, card: str) -> None:
           f"{stats['reused_envs']} of {b}, inherited_visits {stats['inherited_visits']} "
           f"({stats['inherited_visits'] / b} a root); peak memory {peak['search_batch_reuse']} "
           f"MiB [{card}]")
-    no_kernel_launched("the Gumbel and reuse searches at config-5 width")
+    launched_only("the Gumbel and reuse searches at config-5 width", required=("S1a", "S1b"))
 
 
 def arms_rate_path(dev, card: str) -> None:
@@ -1620,7 +1941,7 @@ def arms_rate_path(dev, card: str) -> None:
               f"{sum(events) / 1e3 / secs} of the time (CUDA events); frames with weight 1 "
               f"{int((sample.weight == 1).sum())} of {sample.weight.numel()}; peak memory {peak} "
               f"MiB; invariants hold (policy rows sum to 1 within {row_err}) [{card}]")
-    no_kernel_launched("the arms' config-5 chunks")
+    launched_only("the arms' config-5 chunks", required=("S1a", "S1b"))
 
 
 def arena_arms_path(dev, card: str) -> None:
@@ -1661,7 +1982,7 @@ def arena_arms_path(dev, card: str) -> None:
               f" {got['moves']} lockstep plies ({s / got['moves']} s a ply), {counts['moves']} "
               f"moves checked legal, {env_moves} moves played in {s} s -> {env_moves / s} "
               f"moves/s [{card}]")
-    no_kernel_launched("the arena arms")
+    launched_only("the arena arms", required=("S1a", "S1b"))
 
 
 @contextlib.contextmanager
@@ -1994,7 +2315,7 @@ def nccl_world_of_one_path(dev, card: str) -> None:
                 float(last["train_frames"]) == float(sample.weight.sum()),
                 "a finite loss over the chunk's finished frames")
         require(m_err <= DIST_TRAIN_TOL["rtol"], "the distributed step's metrics vs the local")
-        no_kernel_launched("the NCCL world of one")
+        launched_only("the NCCL world of one", required=("S1a", "S1b"))
     finally:
         dist.destroy_process_group()
 
@@ -2233,7 +2554,7 @@ def host_path(dev, card: str) -> None:
     replay_path(dev, card)
     with example_programs(card):
         profile_path(dev, card)
-    no_kernel_launched("the host side")
+    launched_only("the host side", required=("S1a", "S1b"))
 
 
 def bench_program(card: str, k1_ms: float) -> dict:
@@ -2339,7 +2660,7 @@ def benches_path(dev, card: str, k1_ms: float) -> dict:
                                                f"--chunk={BENCH_CHUNK}",
                                                f"--reps={BENCH_REPS}"]) == 0,
                     "bench_search_scaling")
-            no_kernel_launched("the self-play benches")
+            launched_only("the self-play benches", required=("S1a", "S1b"))
             print(f"[time] phase 29 (b) and (c) in this process: {time.perf_counter() - t0} s")
     return counts
 
@@ -2374,6 +2695,7 @@ def main() -> int:
     store = store_path(dev, bit["obs_bytes_per_s"])
     mark("3-10")
     net_ms = net_path(dev, card)
+    s1 = search_kernels_path(dev, card)
     search_path(dev, card, net_ms)
     arena_path(dev, card)
     mark("11-15")
@@ -2404,8 +2726,13 @@ def main() -> int:
         report["bench_launches"] = launches[k]
     mark("29")
 
+    for report in s1:  # every comparison of the run, the fixtures' included
+        # S1a is held both as the expansion and as step_bits (step_state)
+        names = ("bit_step", "step_state") if report["name"] == "bit_step" else (report["name"],)
+        report["max_abs_err"] = max(S1_ERRS[name][1] for name in names)
+    report_s1_equal("every comparison of this run")
     print(f"[total] {time.perf_counter() - t_start} s from the build to here")
-    print(json.dumps({"kernels": [*bit["reports"], tensor, store]}))
+    print(json.dumps({"kernels": [*bit["reports"], tensor, store, *s1]}))
     require(learned["a_score"] >= cases.LEARN["bar"],
             f"the learn check: {learned['a_score']} against JAX's bar {cases.LEARN['bar']}")
     print(json.dumps({"ok": True, "device": {

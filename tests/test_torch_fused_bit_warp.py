@@ -30,6 +30,7 @@ from twixt_for_open_spiel_tpu_torch.ops import state as tstate
 torch.set_num_threads(1)
 
 SOURCE = _cuda.CSRC / "fused_bit_rollout.cu"
+HEADER = _cuda.CSRC / "bit_step.cuh"  # the step and its constants, shared with S1a
 WARP = 32
 BIG = 1 << 20
 
@@ -37,8 +38,9 @@ _sample_j = jax.jit(jbit.sample_bits, static_argnums=1)
 
 
 def kernel_constants() -> dict:
-    """The kernel's sizing constants as its source sets them."""
-    text = SOURCE.read_text()
+    """The kernel's sizing constants as its source and the step's header set
+    them."""
+    text = SOURCE.read_text() + HEADER.read_text()
     names = ("PAD", "NUM_PLANES", "MAX_N", "NUM_OBS_PLANES", "BOXES", "MAX_BOX_DIM",
              "TMA_ENV_MULTIPLE", "SLOTS", "SMEM_ALIGN", "MAX_ENVS_PER_BLOCK")
     out = {

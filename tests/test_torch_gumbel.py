@@ -139,12 +139,9 @@ def test_gumbel_needs_two_simulations(sims):
         port_search(sims, 16, "auto", noise=False)
 
 
-@pytest.mark.parametrize("gather", ["dense", "gather"])
 @pytest.mark.parametrize("backup", ["amask", "walk"])
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "s{}_m{}".format(*c))
-def test_gumbel_matches_jax_and_naive(case, backup, gather, monkeypatch):
-    if gather == "gather":  # force the per-element gather at these small trees
-        monkeypatch.setattr(tmcts, "_DENSE_GATHER_MAX_NODES", 0)
+def test_gumbel_matches_jax_and_naive(case, backup):
     sims, mc = case
     action, improved, root_q = port_search(sims, mc, backup)
     assert action.dtype == torch.int64 and improved.dtype == root_q.dtype == torch.float32

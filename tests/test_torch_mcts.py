@@ -124,13 +124,10 @@ def port_search(n, sims, kind, backup, **kw):
         dirichlet_frac=0.0, backup=backup, **kw)
 
 
-@pytest.mark.parametrize("gather", ["dense", "gather"])
 @pytest.mark.parametrize("backup", ["amask", "walk"])
 @pytest.mark.parametrize("case", SEARCH_CASES, ids=lambda c: "n{}_s{}_{}".format(*c))
-def test_search_matches_jax_and_naive(case, backup, gather, monkeypatch):
+def test_search_matches_jax_and_naive(case, backup):
     n, sims, kind = case
-    if gather == "gather":  # force the per-element gather at these small trees
-        monkeypatch.setattr(tmcts, "_DENSE_GATHER_MAX_NODES", 0)
     probs, root_q, stats = port_search(n, sims, kind, backup, return_stats=True)
     visits = np.rint(probs.numpy() * sims).astype(np.int64)
     rec = next(r for r in stored()["search"]
@@ -266,7 +263,6 @@ def test_backup_resolution_and_checks():
     assert tmcts._resolve_backup("auto", tmcts._AMASK_MAX_NODES) is True
     assert tmcts._resolve_backup("auto", tmcts._AMASK_MAX_NODES + 1) is False
     assert tmcts._AMASK_MAX_NODES == jmcts._AMASK_MAX_NODES
-    assert tmcts._DENSE_GATHER_MAX_NODES == jmcts._DENSE_GATHER_MAX_NODES
     with pytest.raises(ValueError, match="backup"):
         tmcts._resolve_backup("tree", 9)
     bs = tbit.bit_reset(5, 4, "cpu")

@@ -161,12 +161,9 @@ def naive_sequence(i):
     return out, reused, fresh
 
 
-@pytest.mark.parametrize("gather", ["dense", "gather"])
 @pytest.mark.parametrize("backup", ["amask", "walk"])
 @pytest.mark.parametrize("i", range(len(CASES)), ids=["cap13_table", "cap6_uniform"])
-def test_reuse_sequence_matches_jax_and_naive(i, backup, gather, monkeypatch):
-    if gather == "gather":  # force the per-element gather at these small trees
-        monkeypatch.setattr(tmcts, "_DENSE_GATHER_MAX_NODES", 0)
+def test_reuse_sequence_matches_jax_and_naive(i, backup):
     rec = stored()["sequences"][i]
     sims, cap, kind = rec["num_simulations"], rec["reuse_cap"], rec["evaluator"]
     assert (sims, cap, len(rec["moves"]), kind) == CASES[i]

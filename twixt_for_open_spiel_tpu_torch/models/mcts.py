@@ -5,23 +5,26 @@ over the env batch, as PUCT (``search_batch``), Gumbel sequential halving
 (``search_batch_reuse``), which share one simulation body below the root.
 
 Every tree array carries a leading ``[B]`` env axis and every phase of a
-simulation is a whole-batch tensor op, as in the JAX search: child-side
+simulation is a whole-batch operation, as in the JAX search: child-side
 best-edge scoring over the ``[B, nodes]`` slots, a masked-prior array
 ``uprior`` whose ``-1`` marks an illegal or already-expanded edge, one
-batched ``step_bits`` per simulation for the expansion, one batched
+batched engine step per simulation for the expansion, one batched
 evaluator call, and either backup (ancestor masks or the parent-chain
 walk).  The float32 PUCT scores keep the JAX search's order of operations
 and its three tie rules, so with deterministic evaluators and no root noise
 the root visit counts equal JAX's integer for integer; Gumbel's candidate
 rankings keep ``jax.lax.top_k``'s order of ties (a stable sort).
 
-Host syncs.  JAX's selection and backup walks are ``while_loop``s on
-``any(...)``; here each walk iteration ends with one ``any()`` read by the
-host (one sync), and the first iteration runs unconditionally, as the JAX
-loop's first test always holds.  A simulation syncs once per selection
-iteration (the deepest env's depth plus one) and, under the walk backup,
-once per backup iteration (the deepest leaf's depth plus one); the ancestor
-mask backup needs none.  ``return_stats`` counts both.
+Kernels.  Below the root entry a simulation runs the selection walk
+(``ops/search_walk.py::select_walk``, S1b), the expansion
+(``ops/bit_step.py::bit_step``, S1a: the parent slot's step, the child's
+legal mask and its slot write), the evaluator, the tree's writes and the
+backup (the ancestor masks as torch ops, or ``backup_walk``, S1c).  On the
+card each of S1a-S1c is one CUDA launch and a simulation makes no host
+read; on the CPU their plain versions run, whose walks read ``any()`` once
+an iteration, as JAX's ``while_loop``s test it.  ``return_stats`` counts
+the walks' lockstep iterations (the deepest env's depth plus one) on the
+device and reads them once, at the end.
 
 Randomness comes from one ``torch.Generator`` on the search's device, used
 in turn by the evaluator and the Dirichlet root noise (gamma draws by
@@ -38,6 +41,12 @@ import torch
 
 from twixt_for_open_spiel_tpu_torch.models.network import masked_policy
 from twixt_for_open_spiel_tpu_torch.ops import geometry as geo
+from twixt_for_open_spiel_tpu_torch.ops.bit_step import (
+    bit_step,
+    slot_state,
+    stack_planes,
+    stack_scalars,
+)
 from twixt_for_open_spiel_tpu_torch.ops.bitboard import (
     BitState,
     bit_legal_mask_flat,
@@ -49,19 +58,20 @@ from twixt_for_open_spiel_tpu_torch.ops.bitboard import (
     step_bits,
 )
 from twixt_for_open_spiel_tpu_torch.ops.observe import bit_observation_nchw
+from twixt_for_open_spiel_tpu_torch.ops.search_walk import (
+    NO_NODE,
+    backup_walk,
+    best_edge,
+    select_walk,
+)
 
-NO_NODE = -1
 _I32 = torch.int32
 _I64 = torch.int64
 
 # "auto" backup takes the ancestor masks up to this many tree nodes and the
-# parent-chain walk above (JAX's setting, chosen on the TPU; the crossover
-# on the card is not measured yet).
+# parent-chain walk above (JAX's setting, chosen on the TPU; on the card the
+# two read within their spread of each other at 64-256 simulations, PERF.md).
 _AMASK_MAX_NODES = 160
-
-# _gather_node_state takes the dense one-hot select up to this many tree
-# nodes and the per-element gather above (JAX's setting, as above).
-_DENSE_GATHER_MAX_NODES = 100
 
 
 def _resolve_backup(backup: str, nodes: int) -> bool:
@@ -102,112 +112,11 @@ class Tree(NamedTuple):
     scalars: torch.Tensor    # int32 [nodes, 5, B]
 
 
-# --- stacked node-state buffers <-> BitState ------------------------------
-# plane order: red, blue, links[0..3], blocked[0..3], legal[0..1], flags[0..3]
-
-
-def _stack_planes(bs: BitState) -> torch.Tensor:
-    return torch.stack((bs.red, bs.blue) + bs.links + bs.blocked + bs.legal + bs.flags)
-
-
-def _stack_scalars(bs: BitState) -> torch.Tensor:
-    return torch.stack([bs.current_player, bs.move_counter, bs.move_one,
-                        bs.swapped, bs.result])
-
-
-def _unstack_bitstate(planes, compid, scalars) -> BitState:
-    return BitState(
-        red=planes[0],
-        blue=planes[1],
-        links=tuple(planes[2 + i] for i in range(4)),
-        blocked=tuple(planes[6 + i] for i in range(4)),
-        legal=(planes[10], planes[11]),
-        flags=tuple(planes[12 + i] for i in range(4)),
-        compid=compid,
-        current_player=scalars[0],
-        move_counter=scalars[1],
-        move_one=scalars[2],
-        swapped=scalars[3],
-        result=scalars[4],
-    )
-
-
-def _gather_node_state(tree: Tree, node: torch.Tensor) -> BitState:
-    """Per-env node state: [nodes, ..., B] buffers x node [B] -> [..., B].
-
-    Two bit-identical forms, picked by tree size
-    (``_DENSE_GATHER_MAX_NODES``): a dense one-hot select-and-reduce over
-    every slot, and a per-element gather of the selected slot.
-    """
-    nodes = tree.planes.shape[0]
-    if nodes <= _DENSE_GATHER_MAX_NODES:
-        def leaf(buf):
-            iota = torch.arange(nodes, device=buf.device).reshape(
-                (nodes,) + (1,) * (buf.ndim - 1))
-            oh = node.reshape((1,) * (buf.ndim - 1) + node.shape) == iota
-            return torch.where(oh, buf, 0).sum(dim=0, dtype=buf.dtype)
-    else:
-        def leaf(buf):
-            idx = node.reshape((1,) * (buf.ndim - 1) + node.shape)
-            return buf.gather(0, idx.expand((1,) + buf.shape[1:]))[0]
-
-    return _unstack_bitstate(leaf(tree.planes), leaf(tree.compid), leaf(tree.scalars))
-
-
-def _set_node_state(tree: Tree, node: int, bs: BitState) -> None:
-    """Write one node slot (the same slot in every env), in place."""
-    tree.planes[node] = _stack_planes(bs)
-    tree.compid[node] = bs.compid
-    tree.scalars[node] = _stack_scalars(bs)
-
-
-def _best_edge(tree: Tree, env: torch.Tensor, node: torch.Tensor, c_puct: float):
-    """Best PUCT edge at each env's ``node``: (action, kid, kid_term).
-
-    ``kid`` is the chosen child slot (-1 when the best edge is unexpanded);
-    ``kid_term`` marks a chosen terminal child.  Expanded edges are scored
-    child-side: one ``[B, nodes]`` pass masks the slots whose ``parent`` is
-    the current node.
-    """
-    up_row = tree.uprior[env, node]                            # [B, A]
-    tot = tree.visit[env, node]
-    sq = torch.sqrt(tot.clamp_min(1).float())                  # [B]
-
-    # unexpanded edges: masked prior row (-1 = illegal or expanded); the
-    # first of equal scores is the lowest action
-    sc_u = torch.where(up_row >= 0, c_puct * up_row * sq[:, None], -math.inf)
-    bu_s = sc_u.amax(-1)
-    bu_a = sc_u.argmax(-1)
-
-    # expanded edges, child-side over all node slots; ties go to the lowest
-    # slot (creation order)
-    valid = tree.linked & (tree.parent == node[:, None])      # [B, nodes]
-    # child value stored from the child's mover's perspective; the parent
-    # wants -Q; terminal children hold their exact value for the parent
-    q = torch.where(
-        tree.terminal, tree.tval,
-        -tree.value_sum / tree.visit.clamp_min(1).float(),
-    )
-    u = c_puct * tree.e_prior * sq[:, None] / (1.0 + tree.visit.float())
-    sc_c = torch.where(valid, q + u, -math.inf)
-    bc_s = sc_c.amax(-1)
-    c_star = sc_c.argmax(-1)
-    bc_a = tree.pa[env, c_star]
-    bc_t = tree.terminal[env, c_star]
-
-    # a tie between an expanded and an unexpanded edge goes to the lower action
-    expanded_wins = (bc_s > bu_s) | ((bc_s == bu_s) & (bc_a < bu_a))
-    action = torch.where(expanded_wins, bc_a, bu_a)
-    kid = torch.where(expanded_wins, c_star, NO_NODE)
-    kid_term = expanded_wins & bc_t
-    return action, kid, kid_term
-
-
 def _puct_root(batch: int, c_puct: float, dev):
     """The PUCT root entry of ``_make_simulate``: the best edge at slot 0."""
     env = torch.arange(batch, device=dev)
     node0 = torch.zeros(batch, dtype=_I64, device=dev)
-    return lambda tree, sim: _best_edge(tree, env, node0, c_puct)
+    return lambda tree, sim: best_edge(tree, env, node0, c_puct)
 
 
 def _init_tree(bs: BitState, batch: int, nodes: int, a_dim: int, root_value,
@@ -250,9 +159,9 @@ def _init_tree(bs: BitState, batch: int, nodes: int, a_dim: int, root_value,
         root_child=full((batch, a_dim), NO_NODE, _I64),
         amask=amask,
         depth=depth,
-        planes=alloc(_stack_planes(bs)),
+        planes=alloc(stack_planes(bs)),
         compid=alloc(bs.compid),
-        scalars=alloc(_stack_scalars(bs)),
+        scalars=alloc(stack_scalars(bs)),
     )
 
 
@@ -266,10 +175,9 @@ def _outcome_value(result: torch.Tensor, player: torch.Tensor) -> torch.Tensor:
 
 def _make_simulate(*, params, generator, evaluator, board_size: int, batch: int,
                    nodes: int, a_dim: int, c_puct: float, use_amask: bool, dev,
-                   root_entry, fresh_base: int = 1):
+                   root_entry, fresh_base: int = 1, iters=None):
     """One simulation (selection -> expansion -> evaluation -> backup) as
-    ``simulate(sim, tree) -> (sel_iters, backup_iters)``; it updates
-    ``tree`` in place.
+    ``simulate(sim, tree)``; it updates ``tree`` in place.
 
     ``root_entry(tree, sim) -> (action, kid, kid_term)`` chooses the root
     edge of simulation ``sim``: the PUCT best edge (:func:`search_batch`,
@@ -278,47 +186,38 @@ def _make_simulate(*, params, generator, evaluator, board_size: int, batch: int,
     lockstep PUCT walk, the expansion and the backup.  Simulation ``sim``
     expands into slot ``fresh_base + sim`` in every env: 1 for a cold tree,
     ``reuse_cap`` for a re-rooted one whose survivors hold the slots below.
+    ``iters`` (int32 [2, simulations], zeroed) takes simulation ``sim``'s
+    selection and walk-backup iteration counts in column ``sim``.
     """
     env = torch.arange(batch, device=dev)
     iota_a = torch.arange(a_dim, device=dev)
     iota_n = torch.arange(nodes, device=dev)
 
-    def simulate(sim: int, tree: Tree):
+    def simulate(sim: int, tree: Tree) -> None:
         new_node = fresh_base + sim  # next free slot (uniform over envs)
 
-        # --- selection: all envs walk down in lockstep until each env's
+        # --- selection: every env walks down from its root entry until its
         # best edge is unexpanded or leads to a terminal child
-        node = torch.zeros(batch, dtype=_I64, device=dev)
         action, kid, kid_term = root_entry(tree, sim)
-        can = torch.ones(batch, dtype=torch.bool, device=dev)
-        sel_iters = 0
-        while True:
-            descend = can & (kid >= 0) & ~kid_term
-            node = torch.where(descend, kid.clamp_min(0), node)
-            a, k, kt = _best_edge(tree, env, node, c_puct)
-            action = torch.where(descend, a, action)
-            kid = torch.where(descend, k, kid)
-            kid_term = torch.where(descend, kt, kid_term)
-            can = descend
-            sel_iters += 1
-            if not bool(can.any()):
-                break
-        leaf_parent, existing_kid = node, kid
+        leaf_parent, action, existing_kid = select_walk(
+            tree, action, kid, kid_term, c_puct, None if iters is None else iters[0, sim])
         # an existing child here is terminal (selection stops only on a
         # missing or terminal child): no expansion, its exact value is
         # backed up again
         revisit = existing_kid >= 0
 
-        # --- expansion: one batched bitboard step from the parent states
-        parent_state = _gather_node_state(tree, leaf_parent)
-        child_state = step_bits(parent_state, board_size, action)
+        # --- expansion: one batched engine step from the parent slots into
+        # slot new_node, unconditionally; for revisit envs the slot holds
+        # unlinked garbage (linked=False keeps it out of every child-side pass)
+        bufs = (tree.planes, tree.compid, tree.scalars)
+        child_legal = bit_step(bufs, leaf_parent, action, bufs, new_node, board_size)
+        child_state = slot_state(tree.planes[new_node], tree.compid[new_node],
+                                 tree.scalars[new_node])
         child_terminal = child_state.result != geo.RESULT_OPEN
-        parent_player = parent_state.current_player.clamp(0, 1)
+        parent_player = tree.scalars[:, 0].gather(0, leaf_parent[None])[0].clamp(0, 1)
         term_val = torch.where(
             child_terminal, _outcome_value(child_state.result, parent_player), 0.0)
 
-        child_player = child_state.current_player.clamp(0, 1)
-        child_legal = bit_legal_mask_flat(child_state, child_player, board_size).T
         logits, value = evaluator(params, child_state, generator)
         prior = masked_policy(logits, child_legal)
         # leaf value from the perspective of the player to move at the
@@ -326,17 +225,16 @@ def _make_simulate(*, params, generator, evaluator, board_size: int, batch: int,
         backup_value = torch.where(child_terminal, -term_val, value)
         node_id = torch.where(revisit, existing_kid, new_node)
 
-        # the new node goes to slot new_node unconditionally; for revisit
-        # envs the slot holds unlinked garbage (linked=False keeps it out
-        # of every child-side pass)
         e_prior_new = tree.uprior[env, leaf_parent, action]  # >= 0: live edge
         if use_amask:
             parent_amask = tree.amask[env, leaf_parent]  # [B, nodes]
             parent_depth = tree.depth[env, leaf_parent]
             tree.amask[:, new_node] = parent_amask | (iota_n == new_node)
             tree.depth[:, new_node] = parent_depth + 1
-        # retire the expanded edge (a no-op re-retire for revisit envs)
-        tree.uprior[env, leaf_parent, action] = -1.0
+        # retire the expanded edge (a no-op re-retire for revisit envs): a
+        # fill, where an indexed store of a Python number would copy it to
+        # the card and wait for the copy
+        tree.uprior.view(-1).index_fill_(0, (env * nodes + leaf_parent) * a_dim + action, -1.0)
         tree.uprior[:, new_node] = torch.where(child_legal, prior, -1.0)
         tree.parent[:, new_node] = leaf_parent
         tree.pa[:, new_node] = action
@@ -346,7 +244,6 @@ def _make_simulate(*, params, generator, evaluator, board_size: int, batch: int,
         tree.linked[:, new_node] = ~revisit
         root_edge = (~revisit & (leaf_parent == 0))[:, None] & (action[:, None] == iota_a)
         tree.root_child.masked_fill_(root_edge, new_node)
-        _set_node_state(tree, new_node, child_state)
 
         # --- backup: values alternate sign per level, +backup_value at the
         # leaf; one float add per path node in both variants
@@ -356,20 +253,8 @@ def _make_simulate(*, params, generator, evaluator, board_size: int, batch: int,
             sign = 1.0 - 2.0 * ((leaf_depth[:, None] - tree.depth) & 1).float()
             tree.visit.add_(path.to(_I32))
             tree.value_sum.add_(torch.where(path, backup_value[:, None] * sign, 0.0))
-            return sel_iters, 0
-
-        node, v, bk_iters = node_id, backup_value, 0
-        while True:
-            live = node >= 0
-            idx = node.clamp_min(0)
-            tree.visit[env, idx] += live.to(_I32)
-            tree.value_sum[env, idx] += torch.where(live, v, 0.0)
-            node = torch.where(live, tree.parent[env, idx], NO_NODE)
-            v = -v
-            bk_iters += 1
-            if not bool((node >= 0).any()):
-                break
-        return sel_iters, bk_iters
+        else:
+            backup_walk(tree, node_id, backup_value, None if iters is None else iters[1, sim])
 
     return simulate
 
@@ -478,8 +363,9 @@ def search_batch(params, bs: BitState, generator, *, evaluator, board_size: int,
     Roots must be non-terminal.  ``generator`` is a ``torch.Generator`` on
     the states' device.  Returns (visit_probs [B, A], root_q [B]); with
     ``return_stats`` also ``{"sel_iters", "backup_iters"}``, the lockstep
-    selection and backup walk iterations summed over the simulations (each
-    ends in one host sync; backup_iters is 0 under the amask backup).
+    selection and backup walk iterations summed over the simulations
+    (counted on the device, read once at the end; backup_iters is 0 under
+    the amask backup).
     """
     if bs.current_player.ndim != 1:
         raise ValueError("search_batch wants a 1-D env batch")
@@ -502,20 +388,21 @@ def search_batch(params, bs: BitState, generator, *, evaluator, board_size: int,
     use_amask = _resolve_backup(backup, nodes)
     tree = _init_tree(bs, batch, nodes, a_dim, root_value,
                       torch.where(root_legal, root_prior, -1.0), use_amask)
+    iters = None
+    if return_stats:
+        iters = torch.zeros((2, num_simulations), dtype=_I32, device=dev)
     simulate = _make_simulate(
         params=params, generator=generator, evaluator=evaluator,
         board_size=board_size, batch=batch, nodes=nodes, a_dim=a_dim,
         c_puct=c_puct, use_amask=use_amask, dev=dev,
-        root_entry=_puct_root(batch, c_puct, dev),
+        root_entry=_puct_root(batch, c_puct, dev), iters=iters,
     )
-    sel_ct = bk_ct = 0
     for sim in range(num_simulations):
-        s, b = simulate(sim, tree)
-        sel_ct += s
-        bk_ct += b
+        simulate(sim, tree)
 
     visit_probs, root_q = _root_result(tree, root_legal)
     if return_stats:
+        sel_ct, bk_ct = iters.sum(1).tolist()
         return visit_probs, root_q, {"sel_iters": sel_ct, "backup_iters": bk_ct}
     return visit_probs, root_q
 

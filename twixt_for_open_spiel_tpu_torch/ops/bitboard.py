@@ -290,9 +290,23 @@ def _cell(compid: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor) -> torch.Ten
 
 
 def step_bits(bs: BitState, board_size: int, action) -> BitState:
-    """One move per env (int32 ``action`` [B]); the bit-packed transition of
-    the JAX ``step_bits``, written with per-env row gathers where the JAX
-    engine uses masked row reductions."""
+    """One move per env (int32 ``action`` [B]): the bit-packed transition of
+    the JAX ``step_bits``.  CPU tensors run :func:`step_bits_reference`;
+    CUDA tensors the one-step kernel (``ops/bit_step.py::step_state``), or
+    raise."""
+    device = bs.red.device
+    if device.type == "cpu":
+        return step_bits_reference(bs, board_size, action)
+    # imported here: ops/bit_step.py imports this module
+    from twixt_for_open_spiel_tpu_torch.ops.bit_step import step_state
+
+    return step_state(bs, board_size, action)
+
+
+def step_bits_reference(bs: BitState, board_size: int, action) -> BitState:
+    """The plain torch version of :func:`step_bits`, on any device, written
+    with per-env row gathers where the JAX engine uses masked row
+    reductions."""
     n = board_size
     p = bs.red.shape[0]
     dev = bs.red.device
@@ -567,7 +581,8 @@ def _packed_wire_lanes(bs: BitState, board_size: int) -> torch.Tensor:
 
 def rollout_loop(seed: int, board_size: int, num_steps: int, bs: BitState,
                  obs: torch.Tensor | None = None, emit=_packed_wire_lanes):
-    """The lockstep random rollout, one torch step at a time.  Returns
+    """The lockstep random rollout, one plain torch step at a time (the
+    whole-rollout kernel's plain version, so no kernel on the card).  Returns
     (final state, episodes int32 [], results int32 [4]).  With ``obs`` it
     also writes ``emit(state, board_size)`` of every step's pre-move state
     to ``obs[step]``: by default the packed wire, int32 [12, P, B]."""
@@ -581,7 +596,7 @@ def rollout_loop(seed: int, board_size: int, num_steps: int, bs: BitState,
         if obs is not None:
             obs[k] = emit(bs, board_size)
         actions = sample_bits(bs, board_size, rollout_noise(seed, k, env))
-        nxt = step_bits(bs, board_size, actions)
+        nxt = step_bits_reference(bs, board_size, actions)
         done = nxt.result != geo.RESULT_OPEN
         episodes = episodes + done.sum(dtype=_I32)
         results = results + (done & (nxt.result == rs)).sum(dim=1, dtype=_I32)

@@ -1,19 +1,23 @@
 """Where a full-width PUCT search spends its time, on one CUDA card.
 
-    python3 -m twixt_for_open_spiel_tpu_torch.profile_search
+    python3 -m twixt_for_open_spiel_tpu_torch.profile_search [--simulations=64]
+        [--backup=auto|amask|walk]
 
 One ``search_batch`` at ``chip_smoke.py``'s search row (board 12, batch
 512, 64 simulations, ``dirichlet_frac=0.25``, the untrained bf16 net at
-create_net's full width) under ``torch.profiler`` with CPU and CUDA
+create_net's full width; the flags change the simulations and the
+backup) under ``torch.profiler`` with CPU and CUDA
 activities, after a warm-up search and one search timed without the
 profiler.  The search's parts are labelled by wrapping, for the profiled
 call only, the functions ``models/mcts.py`` calls:
 
-  select     ``_best_edge`` (the selection walk, root included)
-  gather     ``_gather_node_state`` (the parent states)
-  step       ``step_bits`` (the expansion)
+  root       ``best_edge`` (the root entry, torch ops)
+  select     ``select_walk`` (the selection below the root, S1b)
+  expand     ``bit_step`` (the parent slot's step, the child's legal mask
+             and its slot write, S1a)
   evaluate   the evaluator: observation and net
   prior      ``masked_policy``
+  backup     ``backup_walk`` (S1c; the walk backup only)
 
 Prints the card's name and power limit; the search's wall time without and
 with the profiler; per label its host time, the device time of the kernels
@@ -25,6 +29,7 @@ each a sync) per simulation; the ten kernels with the most device time.  Exits n
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import subprocess
 import sys
@@ -37,9 +42,9 @@ from twixt_for_open_spiel_tpu_torch.models import mcts
 from twixt_for_open_spiel_tpu_torch.models.network import call_net, create_net
 from twixt_for_open_spiel_tpu_torch.ops import bitboard as tbit
 
-ROW = (12, 512, 64)  # board, batch, simulations
-LABELS = {"select": "_best_edge", "gather": "_gather_node_state",
-          "step": "step_bits", "prior": "masked_policy"}
+BOARD, BATCH = 12, 512
+LABELS = {"root": "best_edge", "select": "select_walk", "expand": "bit_step",
+          "prior": "masked_policy", "backup": "backup_walk"}
 
 
 def _labelled(label, fn):
@@ -78,8 +83,8 @@ def _busy_ms(kernels) -> float:
     return busy / 1e3
 
 
-def profile_search(dev) -> None:
-    n, b, sims = ROW
+def profile_search(dev, sims: int = 64, backup: str = "auto") -> None:
+    n, b = BOARD, BATCH
     net = create_net(n, device=dev)
     roots = tbit.bit_random_rollout(3, n, 24, tbit.bit_reset(n, b, dev))[0]
     evaluate = mcts.net_evaluator(call_net, n)
@@ -87,7 +92,8 @@ def profile_search(dev) -> None:
 
     def search(evaluator):
         out = mcts.search_batch(net, roots, gen, evaluator=evaluator, board_size=n,
-                                num_simulations=sims, dirichlet_frac=0.25, return_stats=True)
+                                num_simulations=sims, dirichlet_frac=0.25, return_stats=True,
+                                backup=backup)
         torch.cuda.synchronize()
         return out
 
@@ -101,14 +107,15 @@ def profile_search(dev) -> None:
         _, _, stats = search(_labelled("evaluate", evaluate))
         prof_ms = (time.perf_counter() - t0) * 1e3
 
-    labels = ("select", "gather", "step", "evaluate", "prior")
+    labels = ("root", "select", "expand", "evaluate", "prior", "backup")
     events = prof.events()
     # device activities, without the labels' own ranges on the device timeline
     kernels = [e for e in events if e.device_type.name == "CUDA" and e.name not in labels
                and not getattr(e, "is_user_annotation", False)]
     reads = sum(e.name == "aten::_local_scalar_dense" for e in events)
     busy = _busy_ms(kernels)
-    print(f"[profile] search_batch n={n} batch={b} sims={sims}: wall {plain_ms} ms unprofiled, "
+    print(f"[profile] search_batch n={n} batch={b} sims={sims} backup={backup}: wall "
+          f"{plain_ms} ms unprofiled ({plain_ms / sims} ms a simulation), "
           f"{prof_ms} ms profiled; walks {stats}")
     for label in labels:
         spans = [e for e in events if e.device_type.name == "CPU" and e.name == label]
@@ -127,7 +134,12 @@ def profile_search(dev) -> None:
         print(f"[profile] kernel {name[:90]}: device {us / 1e3} ms, launches {count}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--simulations", type=int, default=64)
+    ap.add_argument("--backup", default="auto", choices=("auto", "amask", "walk"))
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_search: no CUDA device", file=sys.stderr)
         return 1
@@ -136,7 +148,7 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card)
-    profile_search(torch.device("cuda", 0))
+    profile_search(torch.device("cuda", 0), args.simulations, args.backup)
     return 0
 
 
