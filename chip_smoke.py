@@ -164,14 +164,17 @@ ends the run with a non-zero exit.
 
   the distributed learner (``parallel/``; K1 on every rank, collectives
   from the library):
-  26. two ranks spawned on the card, over a gloo group made here (NCCL
-      refuses two ranks on one device): (a) ``make_sharded_bit_rollout``
-      at the headline (n=8, global B=4096, 1000 steps, 2048 envs a rank):
+  26. ranks spawned on the card, over a gloo group made here (NCCL
+      refuses two ranks on one device; ``multicard_smoke.py`` runs the
+      NCCL path, one card a rank, on several cards): (a)
+      ``make_sharded_bit_rollout`` at the headline (n=8, global B=4096,
+      1000 steps) as two ranks (2048 envs a rank), then as four (1024):
       K1 launched on each rank (its count set to 0 in the rank just
       before), each rank's shard and the reduced counters bit-equal to
-      the plain version on that shard with that rank's seed and to
-      ``tests/fixtures/torch_port_sharded_rollout.json``; each rank's K1
-      ms and the global env-steps/s beside phase 5's one process; (b)
+      the plain version on that shard with that rank's seed and to the
+      world's case of ``tests/fixtures/torch_port_sharded_rollout.json``;
+      each rank's K1 ms and the global env-steps/s beside phase 5's one
+      process; then two ranks again:  (b)
       ``make_distributed_train_step`` on ``tests/test_sharding.py``'s case
       (board 5, a 16x1 float32 net with TF32 off, half the envs' weights
       zeroed, SGD 0.1, microbatch 1 and 3) against the local
@@ -444,6 +447,7 @@ DRIVER_ARMS = (["--search=puct_reuse", "--arena_search=gumbel"], ["--search=gumb
 # --- the distributed learner (parallel/) -------------------------------------
 SHARDED_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_sharded_rollout.json"
 SHARED_RANKS = 2  # ranks sharing the card over gloo (phase 26)
+SHARED_ROLLOUT_RANKS = (2, 4)  # phase 26 (a): the fixture's two worlds
 SHARDED_REPS = 3
 # tests/test_sharding.py::test_dist_train_step_matches_local's case: board,
 # batch, plies, simulations, channels, blocks; SGD 0.1; microbatch 1 and 3
@@ -2050,30 +2054,58 @@ def sharded_train_case(dev):
 
 
 def shared_rollout_path(dev, card: str, k1_report: dict, k1_ms: float) -> None:
-    """Phase 26 (a): two ranks spawned on the card, over a gloo group (NCCL
-    refuses two ranks on one device), run the sharded K1 rollout with
-    nothing else on the card."""
-    rec = {c["world_size"]: c for c in json.loads(SHARDED_FIXTURE.read_text())["cases"]}[
-        SHARED_RANKS]
-    n, b, steps, seed = rec["board_size"], rec["batch"], rec["num_steps"], rec["seed"]
-    jobs = [("rollout", "bit_rollout", dict(board_size=n, batch=b, num_steps=steps, seed=seed,
-                                             check_plain=True, reps=SHARDED_REPS))]
+    """Phase 26 (a): two ranks, then four, spawned on the card over a gloo
+    group (NCCL refuses two ranks on one device), run the sharded K1
+    rollout with nothing else on the card."""
     t0 = time.perf_counter()
-    ranks = parallel.spawn_ranks(cases.dist_rank, SHARED_RANKS, (str(dev), jobs), timeout=600)
-    secs = time.perf_counter() - t0
+    k1_report["rank_ms"], k1_report["rank_launches"] = {}, {}
+    for world in SHARED_ROLLOUT_RANKS:
+        rec, (case, kw) = sharded_rollout_job(world, SHARDED_REPS)
+        ranks = parallel.spawn_ranks(cases.dist_rank, world, (str(dev), [("rollout", case, kw)]),
+                                     timeout=600)
+        rolls = [r["rollout"] for r in ranks]
+        check_sharded_rollout(rolls, rec, f"on {dev}, gloo", card)
+        b, steps = HEADLINE[1], RATE_STEPS
+        call_ms = max(statistics.median(g["call_ms"]) for g in rolls)
+        print(f"[dist rollout] {world} ranks on one card: {b * steps / call_ms * 1e3} "
+              f"env-steps/s globally (the slower rank's sharded call) beside phase 5's one "
+              f"process {b * steps / k1_ms * 1e3} ({k1_ms} ms) [{card}]")
+        k1_report["rank_ms"][world] = [statistics.median(g["kernel_ms"]) for g in rolls]
+        k1_report["rank_launches"][world] = [g["launches"] for g in rolls]
+    print(f"[dist] phase 26 (a) in {time.perf_counter() - t0} s")
 
-    # K1 on every rank, bit-equal to the plain version and to JAX
-    rolls = [r["rollout"] for r in ranks]
+
+def sharded_rollout_job(world: int, reps: int) -> tuple:
+    """``tests/fixtures/torch_port_sharded_rollout.json``'s case of ``world``
+    ranks (the headline row) and the ``case_bit_rollout`` job that runs it
+    on every rank: the plain version on the same shard beside, ``reps``
+    timed launches and sharded calls a rank."""
+    rec = {c["world_size"]: c for c in json.loads(SHARDED_FIXTURE.read_text())["cases"]}[world]
+    n, b, steps, seed = rec["board_size"], rec["batch"], rec["num_steps"], rec["seed"]
+    require((n, b, steps) == (*HEADLINE, RATE_STEPS), "the fixture's case is the headline row")
+    return rec, ("bit_rollout", dict(board_size=n, batch=b, num_steps=steps, seed=seed,
+                                     check_plain=True, reps=reps))
+
+
+def check_sharded_rollout(rolls: list, rec: dict, where: str, card: str) -> None:
+    """Each rank's K1 launched, its shard bit-equal to the plain version and
+    to the fixture's digest ``rec``, the reduced counters to the fixture's;
+    prints each rank's line (``where``: the ranks' card and backend)."""
+    world, n, b, steps, seed = (rec[k] for k in ("world_size", "board_size", "batch", "num_steps",
+                                                 "seed"))
+    require(len(rolls) == world, f"{world} ranks")
     for rank, got in enumerate(rolls):
         err = max_abs_diff(zip(got["leaves"], got["plain"]["leaves"]))
         digest = tbit.state_digest(tbit.bitstate_from_leaves(got["leaves"]))
-        print(f"[dist rollout] rank {rank} of {SHARED_RANKS} on {dev}, gloo: n={n} "
-              f"{b // SHARED_RANKS} of {b} envs, {steps} steps, seed "
-              f"{parallel.envsharding.rank_seed(seed, rank)}: K1 launches {got['launches']}, "
-              f"max_abs_err vs plain {err}, digest {digest[:16]}; K1 median "
-              f"{statistics.median(got['kernel_ms'])} ms of {got['kernel_ms']} (CUDA events), "
-              f"the sharded call with its all-reduce median {statistics.median(got['call_ms'])} "
-              f"ms [{card}]")
+        timed = ""
+        if "kernel_ms" in got:
+            timed = (f"; K1 median {statistics.median(got['kernel_ms'])} ms of "
+                     f"{got['kernel_ms']} (CUDA events), the sharded call with its all-reduce "
+                     f"median {statistics.median(got['call_ms'])} ms of {got['call_ms']}")
+        print(f"[dist rollout] rank {rank} of {world} {where}: n={n} {b // world} of {b} envs, "
+              f"{steps} steps, seed {parallel.envsharding.rank_seed(seed, rank)}: K1 launches "
+              f"{got['launches']}, max_abs_err vs plain {err}, digest {digest[:16]}{timed} "
+              f"[{card}]")
         require(got["launches"] >= 1, f"rank {rank} launched K1 on its shard")
         require(err == 0, f"rank {rank}: K1 != plain on its shard")
         require((got["episodes"], got["results"]) ==
@@ -2081,13 +2113,6 @@ def shared_rollout_path(dev, card: str, k1_report: dict, k1_ms: float) -> None:
         require(digest == rec["digests"][rank], f"rank {rank}'s shard vs the JAX fixture")
         require((got["episodes"], got["results"]) == (rec["episodes"], rec["results"]),
                 "reduced stats vs the JAX fixture")
-    call_ms = max(statistics.median(g["call_ms"]) for g in rolls)
-    print(f"[dist rollout] {SHARED_RANKS} ranks on one card: {b * steps / call_ms * 1e3} "
-          f"env-steps/s globally (the slower rank's sharded call) beside phase 5's one process "
-          f"{b * steps / k1_ms * 1e3} ({k1_ms} ms) [{card}]")
-    k1_report["rank_ms"] = [statistics.median(g["kernel_ms"]) for g in rolls]
-    k1_report["rank_launches"] = [g["launches"] for g in rolls]
-    print(f"[dist] phase 26 (a) in {secs} s")
 
 
 def shared_learner_path(dev, card: str) -> dict:
@@ -2114,17 +2139,7 @@ def shared_learner_path(dev, card: str) -> dict:
         local = selfplay.train_step(net, torch.optim.SGD(net.parameters(), 0.1),
                                     selfplay.Sample(*(x.to(dev) for x in sample)))
         want = {k: v.cpu() for k, v in net.state_dict().items()}
-    for k in (1, 3):
-        a, b_ = (r[f"train{k}"] for r in ranks)
-        err = max(float(((a["params"][name] - w).abs() / (DIST_TRAIN_TOL["atol"] + DIST_TRAIN_TOL[
-            "rtol"] * w.abs())).max()) for name, w in want.items())
-        m_err = max(abs(a["metrics"][0][key] / float(local[key]) - 1) for key in DIST_METRICS)
-        same = all(torch.equal(a["params"][name], b_["params"][name]) for name in want)
-        print(f"[dist train] microbatch {k}, float32 (TF32 off), SGD 0.1, half the envs' weights "
-              f"zeroed: parameters vs the local step at {err} of rtol 2e-5 + atol 1e-6, metrics "
-              f"rtol {m_err}; the ranks bitwise equal {same}")
-        require(err <= 1 and m_err <= 2e-5, f"the distributed step vs local (microbatch {k})")
-        require(same and a["metrics"] == b_["metrics"], "the ranks' parameters bitwise equal")
+    check_dist_train(ranks, want, {k: float(v) for k, v in local.items()}, "one card, gloo")
 
     # (c) the deterministic chunk, split over the ranks
     chunks = json.loads(SELFPLAY_FIXTURE.read_text())["chunks"]
@@ -2157,6 +2172,27 @@ def shared_learner_path(dev, card: str) -> dict:
     require(same, "the learn check's ranks end equal")
     print(f"[dist] phase 26 (b)-(d) in {secs} s")
     return tally
+
+
+def check_dist_train(ranks: list, want: dict, local: dict, where: str) -> None:
+    """Phase 26 (b)'s bars on the ranks' ``train1`` and ``train3`` results
+    (``case_train``, microbatch 1 and 3): the parameters against the local
+    step's ``want`` (rtol 2e-5 / atol 1e-6), the metrics against its
+    ``local`` (rtol 2e-5), and every rank's parameters and metrics bitwise
+    rank 0's."""
+    for k in (1, 3):
+        got = [r[f"train{k}"] for r in ranks]
+        a = got[0]
+        err = max(float(((a["params"][name] - w).abs() / (DIST_TRAIN_TOL["atol"] + DIST_TRAIN_TOL[
+            "rtol"] * w.abs())).max()) for name, w in want.items())
+        m_err = max(abs(a["metrics"][0][key] / local[key] - 1) for key in DIST_METRICS)
+        same = all(torch.equal(a["params"][name], g["params"][name]) and
+                   a["metrics"] == g["metrics"] for g in got[1:] for name in want)
+        print(f"[dist train] {len(ranks)} ranks ({where}), microbatch {k}, float32 (TF32 off), "
+              f"SGD 0.1, half the envs' weights zeroed: parameters vs the local step at {err} of "
+              f"rtol 2e-5 + atol 1e-6, metrics rtol {m_err}; the ranks bitwise equal {same}")
+        require(err <= 1 and m_err <= 2e-5, f"the distributed step vs local (microbatch {k})")
+        require(same, "the ranks' parameters and metrics bitwise equal")
 
 
 @contextlib.contextmanager

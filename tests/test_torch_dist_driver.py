@@ -11,7 +11,8 @@ own.  Pinned:
   * ``--resume`` with ``--mesh=2``: rank 0 reads the checkpoint and
     restores the best record, and both ranks start at the next iteration
     with rank 0's parameters; a resumed run that trains (a small ``--cpu``
-    budget) leaves the ranks' parameters bitwise equal;
+    budget) leaves the ranks' parameters bitwise equal, and the driver's
+    own check after the first iteration of each run finds them so;
   * the example: two iterations over two ranks, printed by rank 0 only,
     with its checkpoint.
 
@@ -117,6 +118,11 @@ def test_resumed_mesh2_training_keeps_ranks_equal(driver):
     assert any(not torch.equal(r0[2]["net"][k], r0[3]["net"][k]) for k in r0[2]["net"])
     for k in r0[3]["net"]:
         assert torch.equal(r0[3]["net"][k], r1[3]["net"][k]), k
+    # the driver's own check after the first iteration of each run
+    err0 = pathlib.Path(driver["dir"], "stderr0.txt").read_text()
+    for it in (1, 3):
+        assert (f"[mesh] after iteration {it}: the 2 ranks' tensors that differ from rank 0's, "
+                f"by rank: [0, 0]") in err0
     recs = records(os.path.join(driver["dir"], "small.jsonl"))
     assert [r["iteration"] for r in recs if r["kind"] == "train"] == [1, 2, 3]
     assert [r["iteration"] for r in recs if r["kind"] == "gate_vs_init"] == [1, 2, 3]

@@ -79,10 +79,11 @@ def _imported_modules(path):
 
 
 def test_port_source_imports_no_jax():
-    # the package (models/ included), the script that drives it on the card
-    # and the test inputs that script shares
+    # the package (models/ included), the scripts that drive it on one card
+    # and on several, and the test inputs they share
     files = sorted(PORT.rglob("*.py")) + [
-        PORT.parent / "chip_smoke.py", PORT.parent / "tests" / "torch_port_cases.py"]
+        PORT.parent / "chip_smoke.py", PORT.parent / "multicard_smoke.py",
+        PORT.parent / "tests" / "torch_port_cases.py"]
     assert len(files) >= 45
     assert {"mcts.py", "network.py", "convert.py", "arena.py", "selfplay.py",
             "serialization.py", "train_arena_gate.py", "launch.py", "learner_feed.py",

@@ -127,7 +127,7 @@ def world2(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def world4(tmp_path_factory):
-    jobs = bit_jobs() + [("rollout", "rollout", ROLLOUT)]
+    jobs = bit_jobs() + [("rollout", "rollout", ROLLOUT)] + train_jobs()[:2]
     return cases.shared_result(tmp_path_factory, "torch_parallel_world4",
                                lambda: spawn(4, jobs))
 
@@ -380,9 +380,10 @@ def assert_params_close(got: dict, want: dict, what: str, **tol):
 
 
 @pytest.mark.parametrize("microbatch", [1, 3])
-def test_dist_train_step_matches_local(world2, microbatch):
+@pytest.mark.parametrize("world", [2, 4])
+def test_dist_train_step_matches_local(worlds, world, microbatch):
     want, m_loc = local_sgd_step()
-    got = world2[0][f"sgd{microbatch}"]
+    got = worlds[world][0][f"sgd{microbatch}"]
     assert_params_close(got["params"], want, f"microbatch={microbatch}", **TOL)
     for k in METRICS:
         np.testing.assert_allclose(got["metrics"][0][k], float(m_loc[k]), rtol=2e-5, err_msg=k)

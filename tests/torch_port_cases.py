@@ -17,11 +17,14 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import pathlib
 import re
+import subprocess
 import time
 
 import numpy as np
@@ -31,9 +34,14 @@ import torch.distributed as dist
 from twixt_for_open_spiel_tpu_torch import parallel
 from twixt_for_open_spiel_tpu_torch.models import arena, convert, mcts
 from twixt_for_open_spiel_tpu_torch.models.network import AZNet, call_net, create_net
-from twixt_for_open_spiel_tpu_torch.models.selfplay import Sample, make_optimizer, selfplay_chunk
+from twixt_for_open_spiel_tpu_torch.models.selfplay import (
+    Sample,
+    make_optimizer,
+    selfplay_chunk,
+    train_step,
+)
 from twixt_for_open_spiel_tpu_torch.native.engine import NativeEngine, random_game
-from twixt_for_open_spiel_tpu_torch.ops import bitboard, state, step
+from twixt_for_open_spiel_tpu_torch.ops import _cuda, bitboard, state, step
 from twixt_for_open_spiel_tpu_torch.ops import fused_bit_rollout as fbr
 from twixt_for_open_spiel_tpu_torch.ops import geometry as geo
 
@@ -401,14 +409,20 @@ def summary_err(got: dict, want: dict) -> float:
 
 
 def dist_rank(rank: int, world_size: int, rdzv: str, device: str, jobs: list) -> dict:
-    """A spawned rank: join the group, run ``jobs`` in order.  On the CPU
-    the group is gloo through ``initialize_distributed``.  On a card the
-    ranks share it, and NCCL refuses two ranks on one device, so the group
-    is gloo over the card's tensors, made here and passed to the mesh."""
+    """A spawned rank: join the group, run ``jobs`` in order.  ``"cpu"``: a
+    gloo group through ``initialize_distributed``.  ``"cuda"``: one card a
+    rank over NCCL, through ``initialize_distributed``, which makes the
+    rank's card (``cuda:<rank>`` on one host) current before anything
+    touches CUDA.  ``"cuda:<k>"``: every rank on card k; NCCL refuses two
+    ranks on one device, so the group is gloo over the card's tensors,
+    made here and passed to the mesh."""
     device = torch.device(device)
     if device.type == "cpu":
         parallel.initialize_distributed(rdzv, world_size, rank, device="cpu")
         mesh = parallel.make_env_mesh(device)
+    elif device.index is None:
+        parallel.initialize_distributed(rdzv, world_size, rank, device="cuda")
+        mesh = parallel.make_env_mesh()
     else:
         dist.init_process_group("gloo", init_method=rdzv, world_size=world_size, rank=rank,
                                 timeout=parallel.launch.GROUP_TIMEOUT)
@@ -438,9 +452,9 @@ def case_bit_rollout(mesh, board_size: int, batch: int, num_steps: int, seed: in
     leaves, the reduced stats and K1's launches in that one call.  With
     ``check_plain`` the plain rollout runs on the same shard and seed
     (``fused=False``) and its leaves and reduced stats are returned beside;
-    with ``reps`` the rank's fused call is timed that many times (CUDA
-    events, after a barrier), with the host time of the whole sharded call
-    (K1 and the all-reduce)."""
+    with ``reps`` the rank's K1 launch is timed that many times (CUDA
+    events, after a barrier) and, apart from it after a second barrier, the
+    host time of the whole sharded call (K1 and the all-reduce)."""
     bs = parallel.sharded_bit_reset(board_size, batch, mesh)
     roll, _ = parallel.make_sharded_bit_rollout(board_size, num_steps, mesh, fused=fused)
     fbr.fused_bit_rollout.launches = 0
@@ -453,22 +467,53 @@ def case_bit_rollout(mesh, board_size: int, batch: int, num_steps: int, seed: in
         out["plain"] = {"leaves": _cpu(bitboard.bitstate_leaves(pfinal)),
                         "episodes": int(pstats["episodes"]), "results": pstats["results"].tolist()}
     if reps:
+        k1 = functools.partial(fbr.fused_bit_rollout, parallel.envsharding.rank_seed(
+            seed, mesh.rank), board_size, num_steps, bs)
         kernel_ms, call_ms = [], []
         for _ in range(reps):
+            kernel_ms += cuda_ms(k1, 1, mesh)
             dist.barrier(group=mesh.group)
             torch.cuda.synchronize(mesh.device)
             t0 = time.perf_counter()
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fbr.fused_bit_rollout(parallel.envsharding.rank_seed(seed, mesh.rank), board_size,
-                                  num_steps, bs)
-            stop.record()
             roll(seed, bs)
             torch.cuda.synchronize(mesh.device)
             call_ms.append((time.perf_counter() - t0) * 1e3)
-            kernel_ms.append(start.elapsed_time(stop))
         out["kernel_ms"], out["call_ms"] = kernel_ms, call_ms
+    return out
+
+
+def cuda_ms(fn, reps: int, mesh=None) -> list:
+    """Milliseconds of each of ``reps`` calls of ``fn``, each between a pair
+    of CUDA events; with ``mesh``, each after a barrier of its group and a
+    wait for the rank's card."""
+    out = []
+    for _ in range(reps):
+        if mesh is not None:
+            dist.barrier(group=mesh.group)
+            torch.cuda.synchronize(mesh.device)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        out.append(start.elapsed_time(stop))
+    return out
+
+
+def case_k1_alone(mesh, board_size: int, batch: int, num_steps: int, seed: int,
+                  reps: int) -> dict:
+    """Rank 0 times K1 on ``batch`` envs from the reset, after one launch
+    untimed, ``reps`` times by CUDA events, while the other ranks wait at a
+    barrier: one card's rate with the other cards idle."""
+    out = {}
+    if mesh.rank == 0:
+        k1 = functools.partial(fbr.fused_bit_rollout, parallel.envsharding.rank_seed(seed, 0),
+                               board_size, num_steps,
+                               bitboard.bit_reset(board_size, batch, mesh.device))
+        k1()
+        out["kernel_ms"] = cuda_ms(k1, reps)
+    dist.barrier(group=mesh.group)
     return out
 
 
@@ -622,9 +667,141 @@ def case_example(mesh, argv: list, stdout_dir: str) -> int:
         return selfplay_train.main(argv)
 
 
+def primary_contexts() -> list:
+    """The cards (by ordinal) on which this process holds an active primary
+    context, as the CUDA driver reports them
+    (``cuDevicePrimaryCtxGetState``)."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc:
+            raise RuntimeError(f"{what} returned CUDA driver error {rc}")
+
+    count = ctypes.c_int()
+    check(cu.cuInit(0), "cuInit")
+    check(cu.cuDeviceGetCount(ctypes.byref(count)), "cuDeviceGetCount")
+    active = []
+    for i in range(count.value):
+        dev, flags, on = ctypes.c_int(), ctypes.c_uint(), ctypes.c_int()
+        check(cu.cuDeviceGet(ctypes.byref(dev), i), "cuDeviceGet")
+        check(cu.cuDevicePrimaryCtxGetState(dev, ctypes.byref(flags), ctypes.byref(on)),
+              "cuDevicePrimaryCtxGetState")
+        if on.value:
+            active.append(i)
+    return active
+
+
+def case_placement(mesh) -> dict:
+    """Where this rank ran, read after the jobs before it: its rank, size,
+    backend and mesh device; on a card the current device, the cards
+    holding its CUDA contexts and, from rank 0 while every rank is alive
+    (between two barriers), ``nvidia-smi``'s compute processes by card
+    uuid and the cards' uuids (None where nvidia-smi fails) and whether
+    card 0 reaches each other card by peer access; the nvcc runs the
+    process started (``ops/_cuda.py``) and its pid."""
+    out = {"rank": mesh.rank, "size": mesh.size, "backend": dist.get_backend(mesh.group),
+           "device": str(mesh.device), "nvcc_runs": _cuda.build.nvcc_runs, "pid": os.getpid()}
+    if mesh.device.type == "cuda":
+        out["current"] = torch.cuda.current_device()
+        out["contexts"] = primary_contexts()
+        dist.barrier(group=mesh.group)
+        if mesh.rank == 0:
+            query = ["nvidia-smi", "--format=csv,noheader"]
+            for key, what in (("apps", "--query-compute-apps=pid,gpu_uuid,used_memory"),
+                              ("uuids", "--query-gpu=index,uuid")):
+                proc = subprocess.run(query + [what], capture_output=True, text=True,
+                                      timeout=60)
+                out[key] = proc.stdout if proc.returncode == 0 else None
+            out["peers"] = [torch.cuda.can_device_access_peer(0, j)
+                            for j in range(1, mesh.size)]
+        dist.barrier(group=mesh.group)
+    return out
+
+
+def case_allreduce(mesh, numel: int, reps: int) -> list:
+    """Milliseconds of each of ``reps`` all-reduces of a flat float32 buffer
+    of ``numel`` (the learner's gradients), one a pair of CUDA events, each
+    after a barrier, after one untimed."""
+    flat = torch.zeros(numel, dtype=torch.float32, device=mesh.device)
+    mesh.all_reduce(flat)
+    return cuda_ms(lambda: mesh.all_reduce(flat), reps, mesh)
+
+
+def case_train_timed(mesh, board_size: int, batch: int, chunk_steps: int, root_steps: int,
+                     simulations: int, channels: int, blocks: int, lr: float,
+                     reps: int) -> dict:
+    """The learner step at its real width: each rank plays a
+    ``chunk_steps``-ply chunk of ``batch`` envs (roots ``root_steps`` random
+    plies in, seeded by the rank, so that episodes end in it) with the
+    seeded bf16 net.  Then rank 0 alone, the others at a barrier, times the
+    local ``train_step`` on its frames tiled over the ranks' count of envs
+    (the global batch's frames on one card), after one untimed step; then
+    every rank takes three distributed steps on its own frames, checks its
+    parameters against rank 0's (``replicas_differ``), times ``reps`` more
+    by CUDA events and checks again."""
+    n = board_size
+    net = create_net(n, channels, blocks, device=mesh.device)
+    parallel.broadcast_params(net, mesh)
+    roots = bitboard.bit_random_rollout(mesh.rank, n, root_steps,
+                                        bitboard.bit_reset(n, batch, mesh.device))[0]
+    play, _ = parallel.make_distributed_selfplay(call_net, n, chunk_steps, simulations, mesh,
+                                                 temp_moves=16, dirichlet_alpha=0.3)
+    _, sample = play(net, roots, parallel.rank_generator(0, mesh))
+    out = {"frames": sample.weight.numel(), "finished": float(sample.weight.sum())}
+    if mesh.rank == 0:
+        local = copy.deepcopy(net)
+        local_opt = make_optimizer(local.parameters(), lr)
+        tiled = Sample(*(torch.cat([x] * mesh.size, 1) for x in sample))
+        train_step(local, local_opt, tiled)
+        out["local_frames"] = tiled.weight.numel()
+        out["local_ms"] = cuda_ms(lambda: train_step(local, local_opt, tiled), reps)
+    dist.barrier(group=mesh.group)
+    dist_step, _ = parallel.make_distributed_train_step(
+        call_net, make_optimizer(net.parameters(), lr), mesh)
+    for _ in range(3):
+        dist_step(net, sample)
+    out["differ_after_3"] = parallel.replicas_differ(net, mesh)
+    dist.barrier(group=mesh.group)
+    out["dist_ms"] = cuda_ms(lambda: dist_step(net, sample), reps)
+    out["differ_after"] = parallel.replicas_differ(net, mesh)
+    out["tensors"] = len(net.state_dict())
+    return out
+
+
+def case_train_local(mesh, flax_params, sample: Sample, channels: int, blocks: int,
+                     lr: float) -> dict | None:
+    """On rank 0 only: the local ``train_step`` (SGD ``lr``) of the float32
+    net from ``flax_params`` on the whole ``sample``, on the rank's device
+    with TF32 off: the parameters after and the metrics."""
+    if mesh.rank != 0:
+        return None
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    n = round(sample.policy.shape[-1] ** 0.5)
+    net = train_net(flax_params, n, channels, blocks, mesh.device)
+    metrics = train_step(net, torch.optim.SGD(net.parameters(), lr),
+                         Sample(*(x.to(mesh.device) for x in sample)))
+    return {"params": {k: v.cpu() for k, v in net.state_dict().items()},
+            "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
+def case_replicas(mesh, flip_rank=None) -> list:
+    """``replicas_differ`` over a seeded float32 net equal on every rank,
+    with one bit of one weight flipped on ``flip_rank`` first."""
+    net = create_net(5, channels=8, blocks=1, dtype=torch.float32, device=mesh.device)
+    net.load_state_dict(random_state_dict(5, 8, 1, seed=0))
+    if mesh.rank == flip_rank:
+        with torch.no_grad():
+            words = next(net.parameters()).view(-1).view(torch.int32)
+            words[3] ^= 1 << 9
+    return parallel.replicas_differ(net, mesh)
+
+
 DIST_CASES = {"bit_rollout": case_bit_rollout, "rollout": case_rollout, "train": case_train,
               "broadcast": case_broadcast, "chunk": case_chunk, "learn": case_learn,
-              "driver": case_driver, "example": case_example}
+              "driver": case_driver, "example": case_example, "placement": case_placement,
+              "k1_alone": case_k1_alone, "allreduce": case_allreduce,
+              "train_timed": case_train_timed, "train_local": case_train_local,
+              "replicas": case_replicas}
 
 
 def concat_ranks(parts: list, dim: int = -1) -> list:

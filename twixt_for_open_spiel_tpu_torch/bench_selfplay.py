@@ -11,8 +11,11 @@ simulations, the 64x4 net (bf16), PUCT (``--gumbel``: Gumbel;
 ``--reuse``: PUCT with tree reuse).  Two iterations (a chunk, then a train
 step on its frames, the trained net playing the next chunk) warm up; then
 three iterations are timed on the host clock, the card synchronised at
-the end.  Prints ms an iteration, moves/s, MCTS simulations/s and train
-frames/s (frames = batch x chunk).
+the end.  Prints ms an iteration (the slowest rank's), moves/s, MCTS
+simulations/s and train frames/s (frames = batch x chunk), then each
+rank's ms an iteration, moves/s, peak memory and card, and the host's CPU
+count.  Under ``torchrun --nproc_per_node=N`` each of N ranks plays
+``batch / N`` envs on its own card (``--weak``: ``batch`` each).
 
 ``--ranks=N`` (the JAX script's ``--virtual=N``) spawns N gloo ranks on the
 CPU (``parallel.spawn_ranks``) at the CPU shapes, then the same global work
@@ -26,6 +29,7 @@ simulations, a 16x1 net) in one process.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -125,21 +129,45 @@ def main(argv=None) -> int:
                   f"contend for the same cores: this validates the sharded code path, it does "
                   f"NOT measure real scaling; run on several cards for that]", file=sys.stderr)
         return 0
-    device = "cpu" if args.quick else "cuda"
+    device = torch.device("cpu" if args.quick else "cuda")
     made = not dist.is_initialized()
     rank, world = parallel.initialize_world(device=device)  # torchrun's ranks, else one
     try:
-        if device == "cuda":  # the rank's card, made current by the launch
+        if device.type == "cuda":  # the rank's card, made current by the launch
             device = torch.device("cuda", torch.cuda.current_device())
-            print(f"device={torch.cuda.get_device_name(device)}", file=sys.stderr)
+            if rank == 0:
+                print(f"device={torch.cuda.get_device_name(device)}", file=sys.stderr)
         cfg = config(args, world)
-        dt = iterations(cfg, torch.device(device), REPS)
+        rows = per_rank(iterations(cfg, device, REPS), device, rank, world)
         if rank == 0:
-            report(cfg, dt, world, device)
+            report(cfg, max(r[0] for r in rows), world, device)
+            report_ranks(cfg, rows)
     finally:
         if made:
             dist.destroy_process_group()
     return 0
+
+
+def per_rank(dt: float, device: torch.device, rank: int, world: int) -> list:
+    """Every rank's ``[seconds an iteration, peak MiB allocated on its card,
+    its card's index]`` (-1 for both on the CPU), rank by rank, on every
+    rank: one all-reduce of a row a rank."""
+    rows = torch.zeros(world, 3, dtype=torch.float64, device=device)
+    peak, index = -1.0, -1
+    if device.type == "cuda":
+        peak, index = torch.cuda.max_memory_allocated(device) / 2**20, device.index
+    rows[rank] = torch.tensor([dt, peak, index], dtype=torch.float64)
+    return parallel.make_env_mesh(device).all_reduce(rows).tolist()
+
+
+def report_ranks(cfg: dict, rows: list) -> None:
+    world = len(rows)
+    moves = cfg["batch"] // world * cfg["chunk"]
+    for rank, (dt, peak, index) in enumerate(rows):
+        print(f"[rank {rank} of {world}] card {int(index)}: {dt * 1e3} ms/iter, "
+              f"{moves / dt} env-moves/s on its {cfg['batch'] // world} envs, peak "
+              f"{peak} MiB allocated (-1: the CPU)", file=sys.stderr)
+    print(f"[host] {os.cpu_count()} CPUs", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -50,7 +50,12 @@ def nvcc() -> str:
 
 def build(*names: str) -> list:
     """Compile each ``csrc/<name>.cu`` whose library is out of date, all
-    nvcc processes started together; return the libraries' paths."""
+    nvcc processes started together; return the libraries' paths.
+    ``build.nvcc_runs`` counts the nvcc processes this process started.
+
+    Ranks that start at once on a fresh checkout would each compile every
+    library: a program over several ranks calls this once for every
+    kernel before it starts them, so that the ranks only load."""
     libs, jobs = [], []
     for name in names:
         src = CSRC / f"{name}.cu"
@@ -65,6 +70,7 @@ def build(*names: str) -> list:
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
         )
+        build.nvcc_runs += 1
         jobs.append((name, src, lib, tmp, proc))
     failed = []
     for name, src, lib, tmp, proc in jobs:
@@ -78,6 +84,9 @@ def build(*names: str) -> list:
     if failed:
         raise RuntimeError("\n".join(failed))
     return libs
+
+
+build.nvcc_runs = 0
 
 
 @functools.cache

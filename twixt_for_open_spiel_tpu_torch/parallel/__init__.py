@@ -6,7 +6,7 @@ env batch; collectives are NCCL's on the card and gloo's on the CPU.
                    coordinator flags), ``initialize_world``, ``spawn_ranks``
   mesh.py          ``EnvMesh``, ``make_env_mesh``, ``hosts_major_order``,
                    ``shard_env_pytree``, ``rank_generator``,
-                   ``broadcast_params``
+                   ``broadcast_params``, ``replicas_differ``
   envsharding.py   sharded resets and rollouts (K1 on every rank on the card)
   learner_feed.py  ``make_distributed_selfplay``, ``make_distributed_train_step``
   dryrun.py        ``dryrun_multichip``
@@ -20,7 +20,9 @@ from twixt_for_open_spiel_tpu_torch.parallel.mesh import (
     broadcast_params,
     hosts_major_order,
     make_env_mesh,
+    param_checksums,
     rank_generator,
+    replicas_differ,
     shard_env_pytree,
 )
 from twixt_for_open_spiel_tpu_torch.parallel.launch import (
@@ -49,7 +51,9 @@ __all__ = [
     "initialize_distributed",
     "initialize_world",
     "make_env_mesh",
+    "param_checksums",
     "rank_generator",
+    "replicas_differ",
     "shard_env_pytree",
     "spawn_ranks",
     "make_sharded_bit_rollout",

@@ -13,7 +13,8 @@ JAX's ``addressable_shards[r]`` compare directly.
 the sharded functions take.  JAX's layout objects (``env_sharding``,
 ``replicated``, ``trailing_env_spec(s)``, ``jnp_ndim``) have no torch
 counterpart: a shard is a plain tensor, and "replicated" parameters are
-copies that :func:`broadcast_params` makes equal to rank 0's.
+copies that :func:`broadcast_params` makes equal to rank 0's, and that
+:func:`replicas_differ` checks bit for bit.
 """
 
 from __future__ import annotations
@@ -159,3 +160,29 @@ def broadcast_params(module: torch.nn.Module, mesh: EnvMesh,
             for p in group["params"]:
                 tensors += [optimizer.state[p][k] for k in sorted(optimizer.state.get(p, {}))]
     _broadcast_flat(tensors, mesh)
+
+
+def param_checksums(module: torch.nn.Module) -> torch.Tensor:
+    """One int64 a parameter and buffer of ``module`` (in ``state_dict``
+    order), on their device: the sum of the tensor's bytes, byte i
+    weighted by ``1 + i % 251``.  A flipped bit moves a byte by a power of
+    two below 256, and its weight is below 256 too, so the sum moves."""
+    sums = []
+    for t in module.state_dict().values():
+        raw = t.detach().contiguous().reshape(-1).view(torch.uint8).to(torch.int64)
+        weight = torch.arange(raw.numel(), device=raw.device) % 251 + 1
+        sums.append((raw * weight).sum())
+    return torch.stack(sums)
+
+
+def replicas_differ(module: torch.nn.Module, mesh: EnvMesh) -> list:
+    """Per rank, how many of ``module``'s tensors differ from rank 0's copy
+    (by :func:`param_checksums`), the same list on every rank: rank 0's
+    checksums go out by one broadcast, and each rank's count comes back in
+    one all-reduce of a vector with a slot a rank (the collectives that
+    gloo also runs on CUDA tensors)."""
+    mine = param_checksums(module).to(mesh.device)
+    theirs = mesh.broadcast(mine.clone())
+    counts = torch.zeros(mesh.size, dtype=torch.int64, device=mesh.device)
+    counts[mesh.rank] = (mine != theirs).sum()
+    return mesh.all_reduce(counts).tolist()

@@ -7,6 +7,10 @@
     torchrun --nproc_per_node=4 -m twixt_for_open_spiel_tpu_torch.train_arena_gate \\
         --mesh=4 --checkpoint_dir=ckpt --log=gate.jsonl     # four cards
 
+(torch 2.11's torchrun refuses ``--log=`` after the module, taking it for an
+ambiguous abbreviation of its own ``--log-dir``; the README shows how to
+pass it past torchrun's parser.)
+
 Each iteration plays one self-play chunk (``models/selfplay.py``) and takes
 one ``train_step`` on it.  At every gate iteration the current net plays the
 initial net (both searching with the same simulations) and the best-scoring
@@ -31,7 +35,10 @@ ranks, one a card: torchrun's N processes, or this one process for N = 1
 each rank plays its ``batch / N`` envs and trains on them; the gradients
 are averaged by an all-reduce.  Rank 0 alone plays the gates, writes the
 records and checkpoints, and on ``--resume`` reads the checkpoint and
-broadcasts the parameters and optimizer state to the other ranks.
+broadcasts the parameters and optimizer state to the other ranks.  After
+the first iteration of a run over several ranks every rank checks that
+its parameters are rank 0's bit for bit (``parallel.replicas_differ``;
+rank 0 prints the ``[mesh]`` line), and a rank that differs raises.
 
 Randomness comes from one ``torch.Generator`` seeded from ``--seed``; a
 resumed run re-seeds it from (seed, first iteration), as the JAX script
@@ -71,6 +78,7 @@ from twixt_for_open_spiel_tpu_torch.parallel.mesh import (
     broadcast_params,
     fold_seed as _fold,
     make_env_mesh,
+    replicas_differ,
 )
 from twixt_for_open_spiel_tpu_torch.utils import serialization
 
@@ -299,6 +307,13 @@ def _train(args, emit, device, mesh) -> dict:
         metrics = learn(sample)
         loss = float(metrics["loss"])  # waits for the step
         dt = time.perf_counter() - t0
+        if it == start_it and mesh is not None and mesh.size > 1:
+            differ = replicas_differ(net, mesh)
+            if lead:
+                print(f"[mesh] after iteration {it}: the {mesh.size} ranks' tensors that differ "
+                      f"from rank 0's, by rank: {differ}", file=sys.stderr)
+            if any(differ):
+                raise RuntimeError(f"the ranks' parameters diverged at iteration {it}: {differ}")
         if it <= 3 or it % 10 == 0:
             emit({"kind": "train", "iteration": it, "loss": round(loss, 4),
                   "policy_loss": round(float(metrics["policy_loss"]), 4),
