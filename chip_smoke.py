@@ -241,6 +241,19 @@ ends the run with a non-zero exit.
       batch 64 and 8 simulations, every tally adding up.  The kernels line gives K1's, K2's
       and K3's launches in (a) and (b) as ``bench_launches``.
 
+  the training path at the board-12 recipe (``train_arena_gate
+  --board_size=12 --chunk_steps=32 --simulations=64 --temp_moves=16``):
+  30. (a) one chunk of the recipe (B=512, 64 simulations, the seed-0 64x4
+      bf16 net, temperature for 16 plies, Dirichlet 0.3/0.25): every
+      action played checked against its state's legal mask, the sampled
+      ones counted apart (0 illegal required), S1a and S1b launched; (b)
+      the bf16 learner step at config-5 width on the card against JAX's
+      record (``tests/fixtures/torch_port_train_bf16.json``, the tolerance
+      of ``tests/test_torch_train_path.py``): the loss metrics, and each
+      leaf's gradient and AdamW update error to JAX's float32 step,
+      estimated from the record's projections, beside JAX's own bf16
+      error; the float32 step (TF32 off) within 2e-3 of JAX's.
+
 The net, search, arena, self-play, train, driver and host lines with a
 time end with the card's name and power limit (printed alone first);
 ``[launches]`` lines give each phase's kernel launches.
@@ -2701,6 +2714,79 @@ def benches_path(dev, card: str, k1_ms: float) -> dict:
     return counts
 
 
+BF16_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_train_bf16.json"
+
+
+def recipe_path(dev, card: str) -> None:
+    """Phase 30: a chunk of the board-12 recipe with its sampled plies
+    checked for legality, and the bf16 step against JAX's record."""
+    n, b, steps, sims, ch, blocks = SELFPLAY_ROW
+    net = create_net(n, ch, blocks, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    counts = {k: torch.zeros((), dtype=torch.int64, device=dev)
+              for k in ("moves", "sampled", "illegal", "illegal_sampled")}
+    real_step = selfplay.bit_step_auto_reset
+
+    def checked_step(bs, actions, size):
+        legal = tbit.bit_legal_mask_flat(bs, bs.current_player.clamp(0, 1), size).T
+        bad = ~legal.gather(1, actions.long()[:, None])[:, 0]
+        sampled = bs.move_counter < SELFPLAY_TEMP_MOVES
+        counts["moves"] += actions.numel()
+        counts["sampled"] += sampled.sum()
+        counts["illegal"] += bad.sum()
+        counts["illegal_sampled"] += (bad & sampled).sum()
+        return real_step(bs, actions, size)
+
+    zero_counts()
+    selfplay.bit_step_auto_reset = checked_step
+    try:
+        t0 = time.perf_counter()
+        _, sample = selfplay.selfplay_chunk(
+            net, tbit.bit_reset(n, b, dev), gen, board_size=n, num_steps=steps,
+            num_simulations=sims, temp_moves=SELFPLAY_TEMP_MOVES, dirichlet_alpha=0.3,
+            dirichlet_frac=0.25)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        selfplay.bit_step_auto_reset = real_step
+    launched_only("the recipe's chunk", required=("S1a", "S1b"))
+    got = {k: int(v) for k, v in counts.items()}
+    print(f"[recipe chunk] n={n} batch={b} chunk={steps} sims={sims} net {ch}x{blocks} bf16, "
+          f"temp_moves={SELFPLAY_TEMP_MOVES}, Dirichlet 0.3/0.25: {got['moves']} moves, "
+          f"{got['sampled']} sampled; illegal: {got['illegal_sampled']} sampled, "
+          f"{got['illegal']} in all (0 required); finished frames "
+          f"{int(sample.weight.sum())}; {secs} s [{card}]")
+    require(got["sampled"] > 0 and got["moves"] == b * steps, "the chunk sampled its first plies")
+    require(got["illegal"] == 0, f"no illegal action in the recipe's chunk: {got}")
+    require(bool(torch.isfinite(sample.policy).all()), "finite policy targets")
+
+    rec = json.loads(BF16_FIXTURE.read_text())
+    t0 = time.perf_counter()
+    step = cases.bf16_port_step(dev, torch.bfloat16)
+    with no_tf32():
+        f32 = cases.bf16_port_step(dev, torch.float32)
+    failures = {f"metrics {dtype}": cases.metric_failures(s["metrics"], rec[dtype]["metrics"])
+                for dtype, s in (("bf16", step), ("f32", f32))}
+    for part in ("grads", "update"):
+        errs = cases.bf16_errors(step, rec, part)
+        # the leaves the tolerance reads one by one (an update's large ones)
+        held = [k for k in errs if k != "all" and (
+            part == "grads" or step[part][k].numel() >= cases.BIG_LEAF)]
+        worst = max(held, key=lambda k: errs[k][0] / max(errs[k][1], 1e-12))
+        print(f"[recipe bf16] {part}: the card's bf16 error to JAX's float32 step over all "
+              f"leaves {errs['all'][0]} (JAX's bf16: {errs['all'][1]}; bound 1.25x); the leaf "
+              f"furthest from JAX's ratio, {worst}: {errs[worst][0]} against {errs[worst][1]}")
+        failures[part] = cases.bf16_failures(step, rec, part)
+    f32_err = cases.rel_errors(f32["grads"], rec["f32"]["grads"])
+    failures["f32 grads"] = [(k, e) for k, e in f32_err.items() if e > 2e-3]
+    print(f"[recipe bf16] config-5 step on {rec['steps'] * rec['batch']} frames: bf16 loss "
+          f"{step['metrics']['loss']} (JAX's bf16 {rec['bf16']['metrics']['loss']}), "
+          f"value_loss {step['metrics']['value_loss']} ({rec['bf16']['metrics']['value_loss']}); "
+          f"the float32 step's gradients within {max(f32_err.values())} of JAX's (bound 2e-3); "
+          f"outside the tolerance: {failures}; {time.perf_counter() - t0} s [{card}]")
+    require(not any(failures.values()), f"the bf16 step within JAX's bf16 error: {failures}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2761,6 +2847,8 @@ def main() -> int:
     for report, k in zip([*bit["reports"], tensor], ("K1", "K2", "K3")):
         report["bench_launches"] = launches[k]
     mark("29")
+    recipe_path(dev, card)
+    mark("30")
 
     for report in s1:  # every comparison of the run, the fixtures' included
         # S1a is held both as the expansion and as step_bits (step_state)

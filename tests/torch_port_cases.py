@@ -41,7 +41,7 @@ from twixt_for_open_spiel_tpu_torch.models.selfplay import (
     train_step,
 )
 from twixt_for_open_spiel_tpu_torch.native.engine import NativeEngine, random_game
-from twixt_for_open_spiel_tpu_torch.ops import _cuda, bitboard, state, step
+from twixt_for_open_spiel_tpu_torch.ops import _cuda, bitboard, observe, state, step
 from twixt_for_open_spiel_tpu_torch.ops import fused_bit_rollout as fbr
 from twixt_for_open_spiel_tpu_torch.ops import geometry as geo
 
@@ -399,6 +399,178 @@ def summary_err(got: dict, want: dict) -> float:
         raise KeyError(sorted(set(got) ^ set(want)))
     return max(max(abs(g - w) for g, w in zip(got[k], want[k])) / max(want[k][0], 1e-12)
                for k in want)
+
+
+# --- the training path at the recipe's board (12) ----------------------------
+# A board-12 chunk in the deterministic modes (greedy plies, no root noise)
+# with a seeded float32 16x1 net, two chunks in a row from roots part-way
+# through random games, so that games end inside the first chunk and the
+# games that auto-reset carry into the second.
+CHUNK12 = {"board_size": 12, "batch": 4, "num_steps": 32, "num_simulations": 8,
+           "channels": 16, "blocks": 1, "param_seed": 12, "rollout_seed": 5,
+           "rollout_steps": 40, "chunks": 2}
+
+
+def chunk12_state() -> dict:
+    c = CHUNK12
+    return random_state_dict(c["board_size"], c["channels"], c["blocks"], c["param_seed"])
+
+
+def board12_chunks(device) -> list:
+    """The chunks in a row on ``device``: [(final BitState, Sample, aux)]."""
+    c = CHUNK12
+    n = c["board_size"]
+    net = AZNet(n, c["channels"], c["blocks"], torch.float32)
+    net.load_state_dict(chunk12_state())
+    net.to(device)
+    bs = bitboard.bit_random_rollout(c["rollout_seed"], n, c["rollout_steps"],
+                                     bitboard.bit_reset(n, c["batch"], device))[0]
+    out = []
+    for k in range(c["chunks"]):
+        final, sample, aux = selfplay_chunk(
+            net, bs, torch.Generator(device=device).manual_seed(k), board_size=n,
+            num_steps=c["num_steps"], num_simulations=c["num_simulations"], temp_moves=0,
+            dirichlet_frac=0.0, debug_trace=True)
+        out.append((final, sample, aux))
+        bs = final
+    return out
+
+
+# The bf16 learner step at config-5 width (board 12, 64x4): a sample of
+# 256 frames (8 steps of 32 envs of a random rollout, the policy targets
+# sparse over each frame's legal set, outcomes +-1, 40 % of the frames
+# finished) and seeded parameters, one ``train_step`` in bfloat16 and in
+# float32 on each side.  The JAX record keeps each leaf's norm and
+# ``BF16_STEP["projections"]`` seeded projections (:func:`projections`),
+# from which the card's error is estimated without the whole tensors.
+BF16_STEP = {"board_size": 12, "channels": 64, "blocks": 4, "param_seed": 5, "steps": 8,
+             "batch": 32, "rollout_seed": 7, "rollout_steps": 20, "target_seed": 0,
+             "lr": 1e-3, "projections": 32}
+BF16_TOLERANCE = ("metrics rtol 2e-3 (train_frames, target_entropy 1e-6); "
+                  "e = |port bf16 - jax f32| / |jax f32|: a gradient leaf's e <= 2 jax's + 2e-3, "
+                  "an update leaf of >= 2048 elements 1.5 jax's + 0.02, all leaves 1.25 jax's")
+METRIC_RTOL = {"loss": 2e-3, "policy_loss": 2e-3, "value_loss": 2e-3,
+               "train_frames": 1e-6, "target_entropy": 1e-6}
+BIG_LEAF = 2048
+
+
+def bf16_step_state() -> dict:
+    c = BF16_STEP
+    return random_state_dict(c["board_size"], c["channels"], c["blocks"], c["param_seed"])
+
+
+def bf16_step_sample(device) -> Sample:
+    """The step's sample, built on the CPU and moved to ``device``."""
+    c = BF16_STEP
+    n = c["board_size"]
+    bs = bitboard.bit_random_rollout(c["rollout_seed"], n, c["rollout_steps"],
+                                     bitboard.bit_reset(n, c["batch"], "cpu"))[0]
+    wire = []
+    for t in range(c["steps"]):
+        wire.append(observe.bit_observation_packed_with_legal(bs, n))
+        bs = bitboard.bit_random_rollout(c["rollout_seed"] + 1 + t, n, 1, bs)[0]
+    obs = torch.stack(wire)
+    pk = obs.reshape(c["steps"], c["batch"], 12, -1)
+    legal = observe.unpack_legal_words_flat(observe.legal_words_from_obs(pk), n).numpy()
+    rng = np.random.default_rng(c["target_seed"])
+    policy = rng.gamma(0.3, size=legal.shape) * legal
+    policy = (policy / policy.sum(-1, keepdims=True)).astype(np.float32)
+    value = rng.choice([-1.0, 1.0], size=legal.shape[:2]).astype(np.float32)
+    weight = (rng.random(legal.shape[:2]) < 0.4).astype(np.float32)
+    return Sample(obs.to(device), *(torch.from_numpy(x).to(device)
+                                    for x in (policy, value, weight)))
+
+
+def bf16_port_step(device, dtype) -> dict:
+    """The port's step on ``device`` in ``dtype``: the loss metrics, the
+    gradients and the AdamW update (parameters after less before), CPU
+    float32 tensors by leaf."""
+    c = BF16_STEP
+    state = bf16_step_state()
+    net = AZNet(c["board_size"], c["channels"], c["blocks"], dtype)
+    net.load_state_dict(state)
+    net.to(device)
+    opt = make_optimizer(net.parameters(), c["lr"])
+    grads = {}
+    clip_and_step = opt.step
+
+    def step(closure=None):  # the gradients as the step receives them
+        grads.update({k: p.grad.detach().float().cpu().clone()
+                      for k, p in net.named_parameters()})
+        return clip_and_step(closure)
+
+    opt.step = step
+    metrics = train_step(net, opt, bf16_step_sample(device))
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads,
+            "update": {k: v.detach().float().cpu() - state[k]
+                       for k, v in net.state_dict().items()}}
+
+
+def metric_failures(got: dict, want: dict) -> list:
+    """The loss metrics outside ``METRIC_RTOL``: (key, got, want)."""
+    return [(k, got[k], want[k]) for k, rtol in METRIC_RTOL.items()
+            if not abs(got[k] - want[k]) <= rtol * abs(want[k])]
+
+
+def bf16_errors(port_bf16: dict, record: dict, part: str) -> dict:
+    """By leaf and ``"all"``: (the port's bf16 error to JAX's float32
+    result, estimated from the record's projections, and JAX's own)."""
+    err = rel_errors(port_bf16[part], record["f32"][part])
+    return {leaf: (e, record["jax_bf16_err"][part][leaf]) for leaf, e in err.items()}
+
+
+def bf16_failures(port_bf16: dict, record: dict, part: str) -> list:
+    """The leaves of ``part`` ("grads" or "update") where the port's bf16
+    step is further from JAX's float32 step than ``BF16_TOLERANCE`` allows
+    beside JAX's own bf16 step: (leaf, port's error, JAX's)."""
+    bad = []
+    for leaf, (e, j) in bf16_errors(port_bf16, record, part).items():
+        if leaf == "all":
+            ok = e <= 1.25 * j
+        elif part == "grads":
+            ok = e <= 2 * j + 2e-3
+        else:
+            ok = port_bf16[part][leaf].numel() < BIG_LEAF or e <= 1.5 * j + 0.02
+        if not ok:
+            bad.append((leaf, e, j))
+    return bad
+
+
+def projections(tensors: dict, k: int) -> dict:
+    """Each tensor as [its L2 norm, then its dot products with ``k`` fixed
+    standard normal vectors seeded by its name], float64."""
+    out = {}
+    for name, x in tensors.items():
+        a = np.asarray(x.detach().cpu().double() if torch.is_tensor(x) else x,
+                       np.float64).ravel()
+        rng = np.random.default_rng(int.from_bytes(
+            hashlib.sha256(name.encode()).digest()[:4], "little"))
+        out[name] = [float(np.linalg.norm(a))] + [
+            float(a @ rng.standard_normal(a.size)) for _ in range(k)]
+    return out
+
+
+def rel_errors(got: dict, want: dict) -> dict:
+    """|got - want| / |want| by leaf, from whole tensors or, where either
+    side is a :func:`projections` entry, estimated from the projections
+    (the mean square of their differences estimates |got - want|^2 without
+    bias, each vector being standard normal); ``"all"`` over every leaf
+    together."""
+    out, num, den = {}, 0.0, 0.0
+    for name, w in want.items():
+        g = got[name]
+        if isinstance(w, list) or isinstance(g, list):
+            k = len(w if isinstance(w, list) else g) - 1
+            g, w = (x if isinstance(x, list) else projections({name: x}, k)[name]
+                    for x in (g, w))
+            sq, ref = float(np.mean(np.subtract(g[1:], w[1:]) ** 2)), w[0] ** 2
+        else:
+            sq = float(((g.double() - w.double()) ** 2).sum())
+            ref = float((w.double() ** 2).sum())
+        out[name] = (sq / max(ref, 1e-30)) ** 0.5
+        num, den = num + sq, den + ref
+    out["all"] = (num / max(den, 1e-30)) ** 0.5
+    return out
 
 
 # --- the distributed learner: what a spawned rank runs ------------------------

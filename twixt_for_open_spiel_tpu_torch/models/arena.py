@@ -60,9 +60,13 @@ def _dual_net_evaluator(net_apply, board_size: int):
 
 
 def _categorical(generator, logits):
-    """One draw per row from softmax(logits) (Gumbel-max, -inf never)."""
+    """One draw per row from softmax(logits) (Gumbel-max, -inf never).
+
+    An exponential draw of exactly 0 would make an action at -inf
+    ``-inf - (-inf)``, NaN, which ``argmax`` takes; such actions stay at
+    -inf instead (``jax.random.categorical`` never draws them either)."""
     e = torch.empty_like(logits).exponential_(generator=generator)
-    return (logits - e.log()).argmax(-1)
+    return torch.where(logits == -torch.inf, logits, logits - e.log()).argmax(-1)
 
 
 def _select(mask, new, old):
