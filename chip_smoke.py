@@ -7,9 +7,10 @@ just before the path and read just after (launches made to compare a kernel
 with its plain version come before and do not count), then the search's
 kernels (S1a ``bit_step``, S1b ``select_walk``, S1c ``backup_walk``) the
 same way, then the net, the search, the arena, self-play, training, the
-driver and the host side, which run torch ops and the search's kernels on
-the card: every launch count is set to 0 before each phase, and each names
-the kernels it may launch (the search's) and those it must.  Any failure
+driver and the host side, which run torch ops, the net's LayerNorm kernels
+(S2a forward, S2b backward) and the search's kernels on the card: every
+launch count is set to 0 before each phase, and each names the kernels it
+may launch (the search's and the net's) and those it must.  Any failure
 ends the run with a non-zero exit.
 
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -64,11 +65,19 @@ ends the run with a non-zero exit.
       outputs equal ``tests/fixtures/torch_port_net.json`` (<= 1e-5);
   12. the bf16 forward's time (median of 20, CUDA events) beside its
       bound, the convolutions' and Dense layers' FLOPs over 989 TFLOP/s;
+      S2a launched (the net path's only kernel); (b) S2a and S2b against
+      their plain versions at every dtype (bf16, float32), width (8-256)
+      and epilogue (none, ReLU, residual add then ReLU), at a ragged row
+      count and at the search's 61,440 rows (``S2_TOL``: two bf16 ulps of
+      the output's scale, float32 within 1e-5, the parameters' gradients
+      within 2e-5 of their absolute sums), each backward run twice and
+      bit-equal; the net's convolutions hand LayerNorm contiguous rows;
   13. the search's kernels: every call of S1a, S1b and S1c in
       ``search_batch`` with the bf16 net at config-5 width (board 12, batch
       512, 64 simulations) under both backups and at board 24 (batch 256,
       200 simulations, the walk) runs the kernel and its plain version on
-      copies of the same inputs, bit-equal (floats by bit pattern); then the
+      copies of the same inputs, bit-equal (floats by bit pattern), and
+      in the first of them every S2a call too, within ``S2_TOL``; then the
       main path, config-5 searches under both backups, with the three
       kernels' launches counted; each kernel's time (launches back to back)
       and its plain version's on simulation 32's inputs, beside its bound
@@ -121,7 +130,15 @@ ends the run with a non-zero exit.
       ``train_step``
       on its 16,384 frames: the median of 5 after a warm-up beside the
       bound (3 x the forward's FLOPs over 989 TFLOP/s), the loss, peak
-      memory, and that the parameters moved;
+      memory, and that the parameters moved; then one more step with
+      every S2a and S2b call held to its plain version (``S2_TOL``);
+      (b) each S2 shape those paths called (the config-5 search's
+      forward, self-play's 64x4 one, the train step's forward and
+      backward): the kernel's ms a launch (20 back to back), the plain
+      version's, the library's (``F.layer_norm`` on a float32 copy, the
+      cast, ReLU and add the port called before S2, and their autograd
+      backward) and the bound (bytes at 3.35 TB/s), then their sums over
+      one net call or step;
   19. the driver as a program on the card (board 8, batch 64, chunk 8, 16
       simulations, 64 x 4, gates at 2 and 3, arena batch 32 with 4
       simulations), then ``--resume`` to iteration 4: the JSONL record
@@ -260,7 +277,9 @@ time end with the card's name and power limit (printed alone first);
 ``[time]`` lines give each group of phases' wall time, and the total time
 is printed before the two JSON lines.  The
 second-to-last line is a JSON object describing the kernels (K1 and K2
-as entries of their own, then S1a-S1c), each with
+as entries of their own, then S1a-S1c, then S2a and S2b on each path:
+their sums over one net call of the search and of self-play, and over
+one train step's forward and backward), each with
 its time, its plain version's time and its bound (the least time the card
 could take: bytes over 3.35 TB/s or the SASS-counted instructions over
 the issue rates, the larger); the last is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -270,6 +289,7 @@ device, or when a check fails, the script exits non-zero and prints no
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import copy
@@ -301,6 +321,7 @@ from twixt_for_open_spiel_tpu_torch.ops import bitboard as tbit
 from twixt_for_open_spiel_tpu_torch.ops import fused_bit_rollout as fbr
 from twixt_for_open_spiel_tpu_torch.ops import fused_tensor_rollout as ftr
 from twixt_for_open_spiel_tpu_torch.ops import geometry as geo
+from twixt_for_open_spiel_tpu_torch.ops import layer_norm as tln
 from twixt_for_open_spiel_tpu_torch.ops import rollout as troll
 from twixt_for_open_spiel_tpu_torch.ops import search_walk as twalk
 from twixt_for_open_spiel_tpu_torch.ops import state as tstate
@@ -325,7 +346,8 @@ def _load_cases():
 cases = _load_cases()
 FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_rollout_digests.json"
 TENSOR_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_tensor_rollout_digests.json"
-KERNELS = ("fused_bit_rollout", "fused_tensor_rollout", "store_skeleton", "bit_step", "search")
+KERNELS = ("fused_bit_rollout", "fused_tensor_rollout", "store_skeleton", "bit_step", "search",
+           "layer_norm")
 CSRC = "twixt_for_open_spiel_tpu_torch/csrc/"
 
 # The card's published peaks (H100 SXM, NVIDIA's data sheet): 3.35 TB/s of
@@ -424,6 +446,36 @@ S1_SOURCES = {"bit_step": "bit_step.cu", "select_walk": "search.cu", "backup_wal
 # every comparison of a search kernel with its plain version in this run:
 # name -> [calls, largest |kernel - plain|, every bit equal]
 S1_ERRS: dict = {}
+
+# --- the net's LayerNorm (S2a forward, S2b backward: ops/layer_norm.py) -----
+# kernel against plain version on the card, on the same inputs:
+#   bfloat16 outputs and dx: two bf16 ulps of the output's scale (2**-6 of
+#     max |plain|): y is rounded to bf16 after float32 sums taken in another
+#     order, so it may land an ulp apart, and the residual epilogue rounds
+#     twice; float32 outputs and dx: 1e-5 of the scale;
+#   the mean: 1e-5 of max |x|; rstd: 1e-4 of itself (the one-pass variance
+#     loses digits where a row's mean is large against its spread);
+#   dres: equal (the masked gradient, exact in the dtype);
+#   dgamma and dbeta: 2e-5 of each channel's sum of |terms|: a float32 sum
+#     errs by at most about (terms a thread + the tree's depth) * 2**-24 of
+#     that, here and in the plain version's sum.
+S2_TOL = {"bf16": 2.0**-6, "f32": 1e-5, "mean": 1e-5, "rstd": 1e-4, "param": 2e-5}
+# every dtype, width and epilogue at a ragged row count (no multiple of any
+# block's rows) and at the search's 61,440 rows, forward and backward
+S2_EQUAL_ROWS = (1003, 12 * 10 * 512)
+S2_REPS = 20  # launches back to back, a run
+S2_REPLACES = "twixt_for_open_spiel_tpu/models/network.py:33"  # XLA-fused, no Pallas
+S2_SOURCE = CSRC + "layer_norm.cu"
+# the paths whose S2 calls are recorded: label -> (net calls a unit, unit):
+# the held config-5 search (65 forwards), self-play's warm-up ply (one
+# search at 64x4: 65 forwards) and the held config-5 train step
+S2_PATHS = {"search 128x6": (SEARCH_SIMS + 1, "a forward"),
+            "self-play 64x4": (SEARCH_SIMS + 1, "a forward"),
+            "train 64x4": (1, "a step")}
+# label -> Counter of (kernel, dtype, channels, epilogue, rows, stats) calls
+S2_SHAPES: dict = {}
+# label -> [calls, largest |kernel - plain|, every comparison within tolerance]
+S2_ERRS: dict = {}
 
 # --- self-play, the learner step and the driver ------------------------------
 SELFPLAY_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_selfplay.json"
@@ -533,6 +585,7 @@ def zero_counts() -> None:
     fbr.fused_bit_rollout.launches = fbr.fused_bit_rollout.obs_launches = 0
     ftr.fused_random_rollout.launches = sk.store_skeleton.launches = 0
     tstep.bit_step.launches = twalk.select_walk.launches = twalk.backup_walk.launches = 0
+    tln.layer_norm_forward.launches = tln.layer_norm_backward.launches = 0
 
 
 def launch_counts() -> dict:
@@ -541,13 +594,15 @@ def launch_counts() -> dict:
     return {"K1": fbr.fused_bit_rollout.launches - obs, "K2": obs,
             "K3": ftr.fused_random_rollout.launches, "K4": sk.store_skeleton.launches,
             "S1a": tstep.bit_step.launches, "S1b": twalk.select_walk.launches,
-            "S1c": twalk.backup_walk.launches}
+            "S1c": twalk.backup_walk.launches, "S2a": tln.layer_norm_forward.launches,
+            "S2b": tln.layer_norm_backward.launches}
 
 
 SEARCH_KERNELS = ("S1a", "S1b", "S1c")
+NET_KERNELS = ("S2a", "S2b")
 
 
-def launched_only(what: str, allowed=SEARCH_KERNELS, required=()) -> dict:
+def launched_only(what: str, allowed=SEARCH_KERNELS + NET_KERNELS, required=()) -> dict:
     """Require that ``what`` launched no kernel outside ``allowed`` and each
     of ``required`` at least once; print and return the counts."""
     got = launch_counts()
@@ -1120,8 +1175,282 @@ def net_path(dev, card: str) -> float:
           f"of {NET_REPS} ({min(ms)}-{max(ms)}); {flops / 1e9} GFLOP -> "
           f"{flops / med / 1e9} TFLOP/s; bound {bound_ms} ms at {BF16_FLOPS_PER_S / 1e12} "
           f"TFLOP/s bf16 dense (operations), share {bound_ms / med} [{card}]")
-    launched_only("the net path", allowed=())
+    launched_only("the net path", allowed=("S2a",), required=("S2a",))
     return med
+
+
+# --- the net's LayerNorm (S2) ------------------------------------------------
+def s2_kind(dtype) -> str:
+    return "bf16" if dtype == torch.bfloat16 else "f32"
+
+
+def within(got, want, tol) -> tuple:
+    """(largest |got - want|, every |got - want| <= tol): ``tol`` a number or
+    a tensor that broadcasts."""
+    if got.numel() == 0:
+        return 0.0, True
+    d = (got.float() - want.float()).abs()
+    return float(d.max()), bool((d <= tol).all())
+
+
+def s2_forward_diff(x, got, want) -> tuple:
+    """A forward's (largest |kernel - plain|, within S2_TOL) over its output
+    and, when the kernel kept them, its statistics."""
+    out, mean, rstd = got
+    pairs = [(out, want[0], S2_TOL[s2_kind(x.dtype)] * float(want[0].float().abs().max()))]
+    if mean is not None:
+        pairs += [(mean, want[1], S2_TOL["mean"] * float(x.float().abs().max())),
+                  (rstd, want[2], S2_TOL["rstd"] * want[2].abs())]
+    checks = [within(*pair) for pair in pairs]
+    return max(e for e, _ in checks), all(ok for _, ok in checks)
+
+
+def s2_backward_diff(args, got, want) -> tuple:
+    """A backward's (largest |kernel - plain|, within S2_TOL) over dx, the
+    parameters' gradients (against each channel's sum of |terms|) and dres."""
+    dout, x, out, mean, rstd, weight, epilogue = args
+    c = x.shape[-1]
+    dy = (dout if epilogue is None else torch.where(out > 0, dout, 0)).float().reshape(-1, c)
+    xhat = (x.float() - mean[..., None]) * rstd[..., None]
+    mass = [(dy * xhat.reshape(-1, c)).abs().sum(0), dy.abs().sum(0)]
+    pairs = [(got[0], want[0], S2_TOL[s2_kind(x.dtype)] * float(want[0].float().abs().max())),
+             (got[1], want[1], S2_TOL["param"] * mass[0]),
+             (got[2], want[2], S2_TOL["param"] * mass[1])]
+    if epilogue == "residual":
+        pairs.append((got[3], want[3], 0.0))
+    checks = [within(*pair) for pair in pairs]
+    return max(e for e, _ in checks), all(ok for _, ok in checks)
+
+
+def note_s2(path: str, result: tuple) -> None:
+    calls, worst, ok = S2_ERRS.get(path, (0, 0.0, True))
+    S2_ERRS[path] = (calls + 1, max(worst, result[0]), ok and result[1])
+
+
+@contextlib.contextmanager
+def held_s2(path: str, hold: bool = True):
+    """For the block, ``ops/layer_norm.py``'s two launchers (what its
+    dispatchers call for a CUDA tensor) count each call's shape in
+    ``S2_SHAPES[path]`` and, with ``hold``, run the plain version too on
+    copies of the same inputs, go on with the kernel's outputs and add the
+    comparison to ``S2_ERRS[path]``."""
+    real_fwd, real_bwd = tln._launch_forward, tln._launch_backward
+    shapes = S2_SHAPES.setdefault(path, collections.Counter())
+
+    def forward(x, weight, bias, epilogue, residual, stats):
+        c = x.shape[-1]
+        shapes["S2a", x.dtype, c, epilogue, x.numel() // c, stats] += 1
+        if not hold:
+            return real_fwd(x, weight, bias, epilogue, residual, stats)
+        copies = [None if t is None else t.clone() for t in (x, weight, bias, residual)]
+        got = real_fwd(x, weight, bias, epilogue, residual, stats)
+        want = tln.layer_norm_reference(copies[0], copies[1], copies[2], epilogue, copies[3])
+        note_s2(path, s2_forward_diff(x, got, want))
+        return got
+
+    def backward(dout, x, out, mean, rstd, weight, epilogue):
+        c = x.shape[-1]
+        shapes["S2b", x.dtype, c, epilogue, x.numel() // c, True] += 1
+        if not hold:
+            return real_bwd(dout, x, out, mean, rstd, weight, epilogue)
+        copies = [None if t is None else t.clone() for t in (dout, x, out, mean, rstd, weight)]
+        got = real_bwd(dout, x, out, mean, rstd, weight, epilogue)
+        want = tln.layer_norm_backward_reference(*copies, epilogue)
+        note_s2(path, s2_backward_diff((*copies, epilogue), got, want))
+        return got
+
+    tln._launch_forward, tln._launch_backward = forward, backward
+    try:
+        yield
+    finally:
+        tln._launch_forward, tln._launch_backward = real_fwd, real_bwd
+
+
+def report_s2_equal(path: str) -> None:
+    calls, err, ok = S2_ERRS[path]
+    print(f"[S2 equal] {path}: {calls} calls held to the plain version, max_abs_err {err}, "
+          f"within tolerance {ok} (S2_TOL {S2_TOL})")
+    require(ok and calls > 0, f"S2 equals its plain version ({path})")
+
+
+def s2_inputs(dev, dtype, c: int, epilogue, rows: int, seed: int) -> dict:
+    """Seeded activations (off zero mean, as a convolution's), parameters and
+    a gradient on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    return {"x": (normal(rows, c) * 1.2 + 0.3).to(dtype),
+            "weight": normal(c) * 0.3 + 1.0, "bias": normal(c) * 0.3,
+            "residual": normal(rows, c).to(dtype) if epilogue == "residual" else None,
+            "dout": normal(rows, c).to(dtype)}
+
+
+def s2_once(case: dict, epilogue) -> tuple:
+    """One forward (statistics kept) and backward by the kernels and by the
+    plain version: ((kernel, plain) forward, (kernel, plain) backward)."""
+    x, w, b, res, dout = (case[k] for k in ("x", "weight", "bias", "residual", "dout"))
+    fwd = tln.layer_norm_forward(x, w, b, epilogue, res)
+    fwd_plain = tln.layer_norm_reference(x, w, b, epilogue, res)
+    args = (dout, x, fwd[0], fwd[1], fwd[2], w, epilogue)
+    return (fwd, fwd_plain), (args, tln.layer_norm_backward(*args),
+                              tln.layer_norm_backward_reference(*args))
+
+
+def layer_norm_equal_path(dev) -> None:
+    """Phase 12 (b): S2a and S2b against their plain versions at every dtype,
+    width and epilogue, at a ragged row count and the search's; two runs of
+    the backward bit-equal; the net's convolutions hand LayerNorm contiguous
+    NHWC rows, so that its ``contiguous()`` copies nothing."""
+    worst, n = 0.0, 0
+    for rows in S2_EQUAL_ROWS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for c in tln.CHANNELS:
+                for epilogue in tln.EPILOGUES:
+                    case = s2_inputs(dev, dtype, c, epilogue, rows, seed=rows + c)
+                    (fwd, fwd_plain), (args, bwd, bwd_plain) = s2_once(case, epilogue)
+                    again = tln.layer_norm_backward(*args)
+                    f_err, f_ok = s2_forward_diff(case["x"], fwd, fwd_plain)
+                    b_err, b_ok = s2_backward_diff(args, bwd, bwd_plain)
+                    same = all(torch.equal(a, b) for a, b in zip(bwd, again) if a is not None)
+                    what = f"S2 {s2_kind(dtype)} C={c} {epilogue} rows={rows}"
+                    require(f_ok, f"{what}: the forward vs plain ({f_err})")
+                    require(b_ok, f"{what}: the backward vs plain ({b_err})")
+                    require(same, f"{what}: two backward runs bit-equal")
+                    worst, n = max(worst, f_err, b_err), n + 1
+    torch.cuda.synchronize()
+    print(f"[S2 equal] S2a and S2b vs plain at bf16/f32 x C {tln.CHANNELS} x epilogues "
+          f"{list(tln.EPILOGUES)} x rows {S2_EQUAL_ROWS}: {n} cases, max_abs_err {worst}, all "
+          f"within S2_TOL; each backward run twice, bit-equal")
+    n, b = NET_ROW
+    net = create_net(n, device=dev)
+    with torch.no_grad():
+        y = net.stem(torch.from_numpy(cases.random_obs(b, n, OBS_SEED)).to(dev)
+                     .permute(0, 2, 3, 1).to(net.dtype))
+    require(y.is_contiguous(), "the convolutions' NHWC outputs are contiguous")
+
+
+def s2_bound(kernel: str, dtype, c: int, epilogue, rows: int, stats: bool) -> tuple:
+    """(bound_ms, bound_by) of one launch: each tensor the function reads or
+    writes once at 3.35 TB/s, against its float operations (about 8 an
+    element forward, 14 backward) at the float32 peak."""
+    e = rows * c * (2 if dtype == torch.bfloat16 else 4)
+    if kernel == "S2a":  # x in, out out, the residual in, the statistics out
+        nbytes = 2 * e + (e if epilogue == "residual" else 0) + (8 * rows if stats else 0) + 8 * c
+        flops = 8 * rows * c
+    else:  # dout, x, the output (its mask) and the statistics in; dx, dres out
+        nbytes = (3 * e if epilogue is not None else 2 * e) + e + (
+            e if epilogue == "residual" else 0) + 8 * rows + 12 * c
+        flops = 14 * rows * c
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def s2_library(x, w, b, epilogue, residual):
+    """What the port computed before S2, with PyTorch's own kernels:
+    ``F.layer_norm`` on a float32 copy, the cast back, the ReLU, the add."""
+    y = torch.nn.functional.layer_norm(x.float(), w.shape, w, b, tln.LN_EPS).to(x.dtype)
+    if epilogue == "residual":
+        y = residual + y
+    return torch.relu(y) if epilogue is not None else y
+
+
+def device_ms(fn, reps: int) -> float:
+    """The device time of the launches one call of ``fn`` makes: the sum
+    of their kernels' intervals under torch.profiler over ``reps`` calls,
+    over ``reps``.  A short kernel's time without its wrapper's host time,
+    which back-to-back events measure instead when the host is slower."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"
+               and not getattr(e, "is_user_annotation", False)]
+    require(bool(kernels), "the profiler saw the card's kernels")
+    return sum(e.time_range.elapsed_us() for e in kernels) / reps / 1e3
+
+
+def layer_norm_rate_path(dev, card: str, launches: dict) -> list:
+    """Phase 18 (b): each S2 shape the recorded paths called (the config-5
+    search's forward, self-play's at 64x4, the config-5 train step's
+    forward and backward): the device time of a launch (``device_ms``) and
+    a call's time back to back, of the kernel, the plain version and the
+    library composite (``s2_library``, forward and its autograd backward),
+    beside the bound; then, per path, the device times' sums over one net
+    call or step.  Returns the kernels line's S2 entries."""
+    per_key = {}
+    for path, counter in S2_SHAPES.items():
+        for key in counter:
+            per_key.setdefault(key, []).append(path)
+    timed = {}
+    for key, paths in per_key.items():
+        kernel, dtype, c, epilogue, rows, stats = key
+        case = s2_inputs(dev, dtype, c, epilogue, rows, seed=c)
+        x, w, b, res, dout = (case[k] for k in ("x", "weight", "bias", "residual", "dout"))
+        (fwd, fwd_plain), (args, bwd, bwd_plain) = s2_once(case, epilogue)
+        if kernel == "S2a":
+            err, ok = s2_forward_diff(x, fwd, fwd_plain)
+            run = lambda: tln.layer_norm_forward(x, w, b, epilogue, res, stats)  # noqa: E731
+            plain = lambda: tln.layer_norm_reference(x, w, b, epilogue, res)  # noqa: E731
+            library = lambda: s2_library(x, w, b, epilogue, res)  # noqa: E731
+        else:
+            err, ok = s2_backward_diff(args, bwd, bwd_plain)
+            leaves = [t.detach().clone().requires_grad_() for t in (x, w, b, res) if t is not None]
+            lib_out = s2_library(leaves[0], leaves[1], leaves[2], epilogue,
+                                 leaves[3] if len(leaves) == 4 else None)
+            run = lambda: tln.layer_norm_backward(*args)  # noqa: E731
+            plain = lambda: tln.layer_norm_backward_reference(*args)  # noqa: E731
+            library = lambda: torch.autograd.grad(lib_out, leaves, dout,  # noqa: E731
+                                                  retain_graph=True)
+        require(ok, f"S2 {key}: kernel vs plain ({err})")
+        ms, wall = {}, {}
+        for name, fn in (("kernel", run), ("plain", plain), ("library", library)):
+            ms[name] = device_ms(fn, S2_REPS)
+            wall[name] = statistics.median(back_to_back_ms(fn, S2_REPS))
+        bound_ms, by = s2_bound(*key)
+        timed[key] = (ms, bound_ms, by, err)
+        calls = ", ".join(f"{p} x{S2_SHAPES[p][key] / S2_PATHS[p][0]} {S2_PATHS[p][1]}"
+                          for p in paths)
+        print(f"[S2 rate] {kernel} {s2_kind(dtype)} C={c} {epilogue} rows={rows} stats={stats} "
+              f"({calls}): device ms a call (torch.profiler, {S2_REPS} calls) kernel "
+              f"{ms['kernel']}, plain {ms['plain']}, library {ms['library']} (F.layer_norm on a "
+              f"float32 copy, cast, ReLU, add{', autograd backward' if kernel == 'S2b' else ''}); "
+              f"bound {bound_ms} ms ({by}), the kernel at {bound_ms / ms['kernel']} of it; a call "
+              f"back to back ({S2_REPS}, host included) kernel {wall['kernel']}, plain "
+              f"{wall['plain']}, library {wall['library']} ms; max_abs_err {err} [{card}]")
+
+    reports = []
+    names = {"S2a": "layer_norm_forward", "S2b": "layer_norm_backward"}
+    for path, counter in S2_SHAPES.items():
+        units, unit = S2_PATHS[path]
+        for kernel in ("S2a", "S2b"):
+            keys = [k for k in counter if k[0] == kernel]
+            if not keys:
+                continue
+
+            def total(value):  # value(key): ms a launch
+                return sum(counter[k] * value(k) for k in keys) / units
+
+            ms = {name: total(lambda k: timed[k][0][name])
+                  for name in ("kernel", "plain", "library")}
+            bound_ms = total(lambda k: timed[k][1])
+            by = "bytes" if all(timed[k][2] == "bytes" for k in keys) else "operations"
+            held = S2_ERRS.get(path, (0, 0.0, True))[1]
+            print(f"[S2 rate] {path}: {kernel} {sum(counter[k] for k in keys) / units} launches "
+                  f"{unit}, device ms {unit}: kernel {ms['kernel']}, bound {bound_ms} ({by}; "
+                  f"the kernel at {bound_ms / ms['kernel']} of it), plain {ms['plain']}, library "
+                  f"{ms['library']}; launches on the main path {launches[path][kernel]} [{card}]")
+            reports.append({"name": f"{names[kernel]} ({path}, {unit})", "route": "cuda",
+                            "source": S2_SOURCE, "replaces": S2_REPLACES,
+                            "launches": launches[path][kernel],
+                            "max_abs_err": max([held] + [timed[k][3] for k in keys]),
+                            "ms": ms["kernel"], "plain_ms": ms["plain"],
+                            "bound_ms": bound_ms, "bound_by": by, "library_ms": ms["library"]})
+    return reports
 
 
 def diff(pairs) -> tuple:
@@ -1274,18 +1603,21 @@ def search_kernels_path(dev, card: str) -> list:
     both backups) with the launch counts; each kernel's time, plain time
     and bound on one simulation's inputs.  Returns the kernels' reports."""
     captured = {}
-    for n, b, sims, backup in S1_CHECK_ROWS:
+    for row, (n, b, sims, backup) in enumerate(S1_CHECK_ROWS):
         net = create_net(n, device=dev)
         roots = s1_roots(n, b, dev)
         gen = torch.Generator(device=dev).manual_seed(0)
         t0 = time.perf_counter()
-        with held_to_plain(captured if (n, backup) != (24, "walk") else None):
+        # the first (config 5's search) holds S2's calls to their plain version too
+        held = held_s2("search 128x6") if row == 0 else contextlib.nullcontext()
+        with held_to_plain(captured if (n, backup) != (24, "walk") else None), held:
             probs, _, stats = mcts.search_batch(
                 net, roots, gen, evaluator=mcts.net_evaluator(call_net, n), board_size=n,
                 num_simulations=sims, dirichlet_frac=0.25, backup=backup, return_stats=True)
         require(bool(((probs * sims).round().sum(-1) == sims).all()), "root visits")
         report_s1_equal(f"search_batch n={n} batch={b} sims={sims} backup={backup}, walks "
                         f"{stats}, {time.perf_counter() - t0} s")
+    report_s2_equal("search 128x6")
 
     # the main path: config-5 searches, each kernel's launches counted
     n, b, sims, _ = S1_CHECK_ROWS[0]
@@ -1378,11 +1710,12 @@ def simulation_reads(dev, card: str, net, roots, evaluator, n: int) -> None:
           f"simulation [{card}]")
 
 
-def search_path(dev, card: str, net_ms: float) -> None:
+def search_path(dev, card: str, net_ms: float) -> dict:
     """Phases 13-14: search_batch against the JAX fixture (both backups;
     every kernel call held to its plain version), one_rollout against
     JAX's values (its steps held too); the full-width search's time, host
-    reads, launches and invariants."""
+    reads, launches and invariants.  Returns the full-width searches'
+    launch counts."""
     row = torch.full((2, 7), -torch.inf, device=dev)
     row[1, 3:] = 2.0
     require(row.argmax(-1).tolist() == [0, 3], "argmax takes the first maximum on the card")
@@ -1450,7 +1783,7 @@ def search_path(dev, card: str, net_ms: float) -> None:
         runs.append((time.perf_counter() - t0) * 1e3)
         shares.append(sum(a.elapsed_time(z) for a, z in net_events) / runs[-1])
         require(len(net_events) == SEARCH_SIMS + 1, "one net call a simulation and the root")
-    counts = launched_only("the search path", required=("S1a", "S1b"))
+    counts = launched_only("the search path", required=("S1a", "S1b", "S2a"))
     kernels = sum(counts[k] for k in SEARCH_KERNELS) / (SEARCH_REPS * SEARCH_SIMS)
     legal = tbit.bit_legal_mask_flat(roots, roots.current_player.clamp(0, 1), n).T
     visits = (probs * SEARCH_SIMS).round()
@@ -1467,6 +1800,7 @@ def search_path(dev, card: str, net_ms: float) -> None:
           f"simulation (S1a, S1b, S1c); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**20} MiB; invariants hold [{card}]")
     simulation_reads(dev, card, net, roots, mcts.net_evaluator(call_net, n), n)
+    return counts
 
 
 def arena_path(dev, card: str) -> None:
@@ -1602,18 +1936,21 @@ def train_equal_path(dev) -> None:
               f"{'within' if close else 'OUTSIDE'} rtol {TRAIN_TOL['param_rtol']} atol "
               f"{TRAIN_TOL['param_atol']}")
         require(close, "the microbatched step vs the monolithic step")
-    launched_only("the train step's chunk", required=("S1a", "S1b"))
+    launched_only("the train step's chunk", required=("S1a", "S1b", "S2a", "S2b"))
 
 
-def selfplay_rate_path(dev, card: str) -> None:
-    """Phase 18: one config-5 chunk and train steps on it, at full width."""
+def selfplay_rate_path(dev, card: str) -> dict:
+    """Phase 18: one config-5 chunk and train steps on it, at full width;
+    then one more step with every S2 call held to its plain version.
+    Returns the chunk's and the timed steps' launch counts."""
     zero_counts()
     n, b, steps, sims, ch, blocks = SELFPLAY_ROW
     net = create_net(n, ch, blocks, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     kw = dict(board_size=n, num_simulations=sims, temp_moves=SELFPLAY_TEMP_MOVES,
               dirichlet_alpha=0.3, dirichlet_frac=0.25)
-    selfplay.selfplay_chunk(net, tbit.bit_reset(n, b, dev), gen, num_steps=1, **kw)  # warm-up
+    with held_s2("self-play 64x4", hold=False):  # the warm-up ply: one search's S2 shapes
+        selfplay.selfplay_chunk(net, tbit.bit_reset(n, b, dev), gen, num_steps=1, **kw)
 
     search_events = []
     real_search = mcts.search_batch
@@ -1631,6 +1968,7 @@ def selfplay_rate_path(dev, card: str) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mcts.search_batch = timed_search
+    before_chunk = launch_counts()
     try:
         t0 = time.perf_counter()
         final, sample, aux = selfplay.selfplay_chunk(net, roots, gen, num_steps=steps,
@@ -1639,6 +1977,7 @@ def selfplay_rate_path(dev, card: str) -> None:
         secs = time.perf_counter() - t0
     finally:
         mcts.search_batch = real_search
+    chunk_counts = {k: v - before_chunk[k] for k, v in launch_counts().items()}
     peak = torch.cuda.max_memory_allocated() / 2**20
     search_s = sum(a.elapsed_time(z) for a, z in search_events) / 1e3
     require(len(search_events) == steps, "one search a ply")
@@ -1678,7 +2017,9 @@ def selfplay_rate_path(dev, card: str) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses = []
+    before_steps = launch_counts()
     ms = timed_ms(lambda: losses.append(selfplay.train_step(net, opt, sample)["loss"]), TRAIN_REPS)
+    step_counts = {k: v - before_steps[k] for k, v in launch_counts().items()}
     peak = torch.cuda.max_memory_allocated() / 2**20
     med = statistics.median(ms)
     frames = steps * b
@@ -1692,7 +2033,11 @@ def selfplay_rate_path(dev, card: str) -> None:
           f"{BF16_FLOPS_PER_S / 1e12} TFLOP/s, operations), share {bound_ms / med}; loss {loss}; "
           f"peak memory {peak} MiB; parameters moved {moved} [{card}]")
     require(torch.isfinite(torch.tensor(loss)).item() and moved, "a finite loss, moved parameters")
-    launched_only("the config-5 chunk and train step", required=("S1a", "S1b"))
+    with held_s2("train 64x4"):
+        selfplay.train_step(net, opt, sample)
+    report_s2_equal("train 64x4")
+    launched_only("the config-5 chunk and train step", required=("S1a", "S1b", "S2a", "S2b"))
+    return {"self-play 64x4": chunk_counts, "train 64x4": step_counts}
 
 
 def driver_path(dev, card: str) -> None:
@@ -2817,13 +3162,15 @@ def main() -> int:
     store = store_path(dev, bit["obs_bytes_per_s"])
     mark("3-10")
     net_ms = net_path(dev, card)
+    layer_norm_equal_path(dev)
     s1 = search_kernels_path(dev, card)
-    search_path(dev, card, net_ms)
+    s2_launches = {"search 128x6": search_path(dev, card, net_ms)}
     arena_path(dev, card)
     mark("11-15")
     selfplay_equal_path(dev)
     train_equal_path(dev)
-    selfplay_rate_path(dev, card)
+    s2_launches.update(selfplay_rate_path(dev, card))
+    s2 = layer_norm_rate_path(dev, card, s2_launches)
     mark("16-18")
     with driver_arms(dev, card):
         driver_path(dev, card)
@@ -2856,7 +3203,7 @@ def main() -> int:
         report["max_abs_err"] = max(S1_ERRS[name][1] for name in names)
     report_s1_equal("every comparison of this run")
     print(f"[total] {time.perf_counter() - t_start} s from the build to here")
-    print(json.dumps({"kernels": [*bit["reports"], tensor, store, *s1]}))
+    print(json.dumps({"kernels": [*bit["reports"], tensor, store, *s1, *s2]}))
     require(learned["a_score"] >= cases.LEARN["bar"],
             f"the learn check: {learned['a_score']} against JAX's bar {cases.LEARN['bar']}")
     print(json.dumps({"ok": True, "device": {

@@ -9,10 +9,12 @@ activations, as flax's ``dtype=`` does; the value head's last LayerNorm,
 Dense and ``tanh`` run in float32 and its output kernel starts at zero.
 
 Activations run NHWC, the flax layout: LayerNorm normalises the channel
-axis (eps 1e-6, flax's) and both heads flatten NHWC before their Dense
-layer.  Each convolution sees its NHWC input as a channels-last NCHW view.
-Weights are stored in torch's layouts (OIHW convolutions, ``[out, in]``
-Dense); ``models/convert.py`` carries flax parameters across.
+axis with flax's formula (eps 1e-6) and carries the ReLU and the residual
+add that follow it (``ops/layer_norm.py``: S2's kernels on the card), and
+both heads flatten NHWC before their Dense layer.  Each convolution sees
+its NHWC input as a channels-last NCHW view, and hands LayerNorm contiguous
+NHWC rows.  Weights are stored in torch's layouts (OIHW convolutions,
+``[out, in]`` Dense); ``models/convert.py`` carries flax parameters across.
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from twixt_for_open_spiel_tpu_torch.ops import geometry as geo
+from twixt_for_open_spiel_tpu_torch.ops.layer_norm import layer_norm
 
-LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon
 HEAD_CHANNELS = 32
 VALUE_HIDDEN = 256
 
@@ -48,17 +50,20 @@ class Conv(nn.Module):
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm`` over the last (channel) axis: statistics and
-    the affine map in float32, the result in ``dtype``."""
+    the affine map in float32, the result in ``dtype``, then ``epilogue``:
+    None, ``"relu"``, or ``"residual"`` (``relu(residual + y)``, the
+    residual passed to ``forward``)."""
 
-    def __init__(self, channels: int, dtype):
+    def __init__(self, channels: int, dtype, epilogue=None):
         super().__init__()
         self.dtype = dtype
+        self.epilogue = epilogue
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x):
-        y = F.layer_norm(x.float(), self.weight.shape, self.weight, self.bias, LN_EPS)
-        return y.to(self.dtype)
+    def forward(self, x, residual=None):
+        return layer_norm(x.to(self.dtype).contiguous(), self.weight, self.bias, self.epilogue,
+                          residual)
 
 
 class Dense(nn.Module):
@@ -79,14 +84,13 @@ class ResBlock(nn.Module):
     def __init__(self, channels: int, dtype):
         super().__init__()
         self.conv0 = Conv(channels, channels, 3, dtype)
-        self.norm0 = LayerNorm(channels, dtype)
+        self.norm0 = LayerNorm(channels, dtype, "relu")
         self.conv1 = Conv(channels, channels, 3, dtype)
-        self.norm1 = LayerNorm(channels, dtype)
+        self.norm1 = LayerNorm(channels, dtype, "residual")
 
     def forward(self, x):
-        y = F.relu(self.norm0(self.conv0(x)))
-        y = self.norm1(self.conv1(y))
-        return F.relu(x + y)
+        y = self.norm0(self.conv0(x))
+        return self.norm1(self.conv1(y), residual=x)
 
 
 class AZNet(nn.Module):
@@ -103,27 +107,27 @@ class AZNet(nn.Module):
         self.dtype = dtype
         cells = board_size * (board_size - 2)
         self.stem = Conv(geo.NUM_PLANES, channels, 3, dtype)
-        self.stem_norm = LayerNorm(channels, dtype)
+        self.stem_norm = LayerNorm(channels, dtype, "relu")
         self.blocks = nn.ModuleList(ResBlock(channels, dtype) for _ in range(blocks))
         self.policy_conv = Conv(channels, HEAD_CHANNELS, 1, dtype)
-        self.policy_norm = LayerNorm(HEAD_CHANNELS, dtype)
+        self.policy_norm = LayerNorm(HEAD_CHANNELS, dtype, "relu")
         self.policy_out = Dense(HEAD_CHANNELS * cells, board_size * board_size, dtype)
         self.value_conv = Conv(channels, HEAD_CHANNELS, 1, dtype)
-        self.value_norm = LayerNorm(HEAD_CHANNELS, dtype)
+        self.value_norm = LayerNorm(HEAD_CHANNELS, dtype, "relu")
         self.value_hidden = Dense(HEAD_CHANNELS * cells, VALUE_HIDDEN, dtype)
         self.value_hidden_norm = LayerNorm(VALUE_HIDDEN, torch.float32)
         self.value_out = Dense(VALUE_HIDDEN, 1, torch.float32)
 
     def forward(self, obs):
         x = obs.permute(0, 2, 3, 1).to(self.dtype)  # NCHW -> NHWC
-        x = F.relu(self.stem_norm(self.stem(x)))
+        x = self.stem_norm(self.stem(x))
         for block in self.blocks:
             x = block(x)
 
-        p = F.relu(self.policy_norm(self.policy_conv(x)))
+        p = self.policy_norm(self.policy_conv(x))
         logits = self.policy_out(p.reshape(p.shape[0], -1))
 
-        v = F.relu(self.value_norm(self.value_conv(x)))
+        v = self.value_norm(self.value_conv(x))
         v = F.relu(self.value_hidden(v.reshape(v.shape[0], -1)))
         v = self.value_hidden_norm(v.float())
         value = torch.tanh(self.value_out(v))[:, 0]

@@ -24,7 +24,10 @@ with the profiler; per label its host time, the device time of the kernels
 launched under it and its calls; the device's busy time (the union of
 kernel intervals) and its idle share of the profiled and of the unprofiled
 search; device activities and host reads (``aten::_local_scalar_dense``,
-each a sync) per simulation; the ten kernels with the most device time.  Exits non-zero without a CUDA device.
+each a sync) per simulation; the device time and launches of each kernel
+class (``CLASSES``: S2's LayerNorm kernels apart from any library
+LayerNorm, convolutions, matrix products, casts, the rest); the ten
+kernels with the most device time.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -43,6 +46,20 @@ from twixt_for_open_spiel_tpu_torch.models.network import call_net, create_net
 from twixt_for_open_spiel_tpu_torch.ops import bitboard as tbit
 
 BOARD, BATCH = 12, 512
+# kernel classes by name, the first match wins: S2's kernels
+# (csrc/layer_norm.cu), then PyTorch's own LayerNorm kernels, should any run
+CLASSES = (
+    ("S2b layer_norm backward", ("layer_norm_backward_kernel", "layer_norm_param_grad_kernel")),
+    ("S2a layer_norm forward", ("layer_norm_forward_kernel",)),
+    ("library layer_norm backward", ("layer_norm_grad", "GammaBeta", "LayerNormBackward",
+                                     "layer_norm_backward")),
+    ("library layer_norm forward", ("layer_norm",)),
+    ("conv backward", ("dgrad", "wgrad")),
+    ("conv forward", ("fprop", "conv")),
+    ("matmul", ("gemm", "gemv", "cutlass", "sm90_xmma")),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("cast and copy", ("copy", "cast")),
+)
 LABELS = {"root": "best_edge", "select": "select_walk", "expand": "bit_step",
           "prior": "masked_policy", "backup": "backup_walk"}
 
@@ -81,6 +98,25 @@ def _busy_ms(kernels) -> float:
             busy += stop - max(start, end)
             end = stop
     return busy / 1e3
+
+
+def kernel_class(name: str) -> str:
+    low = name.lower()
+    for label, keys in CLASSES:
+        if any(k.lower() in low for k in keys):
+            return label
+    return "other"
+
+
+def print_classes(kernels) -> None:
+    """Device time and launches of each kernel class, the largest first."""
+    by_class = {}
+    for k in kernels:
+        label = kernel_class(k.name)
+        total, count = by_class.get(label, (0.0, 0))
+        by_class[label] = (total + k.time_range.elapsed_us(), count + 1)
+    for label, (us, count) in sorted(by_class.items(), key=lambda kv: -kv[1][0]):
+        print(f"[profile] class {label}: device {us / 1e3} ms, launches {count}")
 
 
 def profile_search(dev, sims: int = 64, backup: str = "auto") -> None:
@@ -126,6 +162,7 @@ def profile_search(dev, sims: int = 64, backup: str = "auto") -> None:
           f"{1 - busy / prof_ms} of the profiled search, {1 - busy / plain_ms} of the "
           f"unprofiled one; {len(kernels)} device activities = {len(kernels) / sims} a "
           f"simulation; {reads} host reads = {reads / sims} a simulation")
+    print_classes(kernels)
     by_name = {}
     for k in kernels:
         total, count = by_name.get(k.name, (0.0, 0))

@@ -12,8 +12,9 @@ not depend on the targets' values.
 Prints the card's name and power limit; the step's wall time without and
 with the profiler; the device's busy time (the union of kernel intervals)
 and idle share; the device time and launches of each kernel class
-(LayerNorm forward and backward, convolutions forward and backward, matrix
-products, dtype casts and copies, the optimizer's fused loops, the rest);
+(``profile_search.CLASSES``: S2's LayerNorm forward and backward, any
+library LayerNorm, convolutions forward and backward, matrix products,
+dtype casts and copies, the optimizer's fused loops, the rest);
 and the fifteen kernels with the most device time.  Exits non-zero without
 a CUDA device.
 """
@@ -34,29 +35,9 @@ from twixt_for_open_spiel_tpu_torch.models.selfplay import (
     train_step,
 )
 from twixt_for_open_spiel_tpu_torch.ops import bitboard as tbit
-from twixt_for_open_spiel_tpu_torch.profile_search import _busy_ms
+from twixt_for_open_spiel_tpu_torch.profile_search import _busy_ms, print_classes
 
 ROW = (12, 512, 32, 64, 4)  # board, batch, chunk steps, channels, blocks
-
-# kernel classes by name, the first match wins
-CLASSES = (
-    ("layer_norm backward", ("layer_norm_grad", "GammaBeta", "LayerNormBackward",
-                             "layer_norm_backward")),
-    ("layer_norm forward", ("layer_norm",)),
-    ("conv backward", ("dgrad", "wgrad")),
-    ("conv forward", ("fprop", "conv")),
-    ("matmul", ("gemm", "gemv", "cutlass", "sm90_xmma")),
-    ("optimizer", ("multi_tensor_apply",)),
-    ("cast and copy", ("copy", "cast")),
-)
-
-
-def kernel_class(name: str) -> str:
-    low = name.lower()
-    for label, keys in CLASSES:
-        if any(k.lower() in low for k in keys):
-            return label
-    return "other"
 
 
 def profile_train(dev) -> None:
@@ -87,14 +68,11 @@ def profile_train(dev) -> None:
           f"{plain_ms} ms unprofiled, {prof_ms} ms profiled; device busy {busy} ms (union of "
           f"kernel intervals): idle share {1 - busy / prof_ms} of the profiled step, "
           f"{1 - busy / plain_ms} of the unprofiled one; {len(kernels)} device activities")
-    by_class, by_name = {}, {}
+    print_classes(kernels)
+    by_name = {}
     for k in kernels:
-        us = k.time_range.elapsed_us()
-        for table, key in ((by_class, kernel_class(k.name)), (by_name, k.name)):
-            total, count = table.get(key, (0.0, 0))
-            table[key] = (total + us, count + 1)
-    for label, (us, count) in sorted(by_class.items(), key=lambda kv: -kv[1][0]):
-        print(f"[profile] class {label}: device {us / 1e3} ms, launches {count}")
+        total, count = by_name.get(k.name, (0.0, 0))
+        by_name[k.name] = (total + k.time_range.elapsed_us(), count + 1)
     for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"[profile] kernel {name[:100]}: device {us / 1e3} ms, launches {count}")
 
