@@ -134,7 +134,8 @@ ends the run with a non-zero exit.
       every S2a and S2b call held to its plain version (``S2_TOL``);
       (b) each S2 shape those paths called (the config-5 search's
       forward, self-play's 64x4 one, the train step's forward and
-      backward): the kernel's ms a launch (20 back to back), the plain
+      backward): the kernel's ms a launch (20, cycling through 256 MiB of
+      input sets, so that L2 holds none of a launch's data), the plain
       version's, the library's (``F.layer_norm`` on a float32 copy, the
       cast, ReLU and add the port called before S2, and their autograd
       backward) and the bound (bytes at 3.35 TB/s), then their sums over
@@ -293,6 +294,8 @@ import collections
 import concurrent.futures
 import contextlib
 import copy
+import functools
+import itertools
 import json
 import math
 import os
@@ -453,17 +456,19 @@ S1_ERRS: dict = {}
 #     max |plain|): y is rounded to bf16 after float32 sums taken in another
 #     order, so it may land an ulp apart, and the residual epilogue rounds
 #     twice; float32 outputs and dx: 1e-5 of the scale;
-#   the mean: 1e-5 of max |x|; rstd: 1e-4 of itself (the one-pass variance
-#     loses digits where a row's mean is large against its spread);
 #   dres: equal (the masked gradient, exact in the dtype);
 #   dgamma and dbeta: 2e-5 of each channel's sum of |terms|: a float32 sum
 #     errs by at most about (terms a thread + the tree's depth) * 2**-24 of
 #     that, here and in the plain version's sum.
-S2_TOL = {"bf16": 2.0**-6, "f32": 1e-5, "mean": 1e-5, "rstd": 1e-4, "param": 2e-5}
+S2_TOL = {"bf16": 2.0**-6, "f32": 1e-5, "param": 2e-5}
 # every dtype, width and epilogue at a ragged row count (no multiple of any
 # block's rows) and at the search's 61,440 rows, forward and backward
 S2_EQUAL_ROWS = (1003, 12 * 10 * 512)
 S2_REPS = 20  # launches back to back, a run
+# a timed run cycles through this many bytes of distinct inputs and outputs,
+# about five times the H100's 50 MB L2, so each launch reads from and
+# writes to HBM as a net's call does
+S2_ROTATE_BYTES = 256 << 20
 S2_REPLACES = "twixt_for_open_spiel_tpu/models/network.py:33"  # XLA-fused, no Pallas
 S2_SOURCE = CSRC + "layer_norm.cu"
 # the paths whose S2 calls are recorded: label -> (net calls a unit, unit):
@@ -472,7 +477,7 @@ S2_SOURCE = CSRC + "layer_norm.cu"
 S2_PATHS = {"search 128x6": (SEARCH_SIMS + 1, "a forward"),
             "self-play 64x4": (SEARCH_SIMS + 1, "a forward"),
             "train 64x4": (1, "a step")}
-# label -> Counter of (kernel, dtype, channels, epilogue, rows, stats) calls
+# label -> Counter of (kernel, dtype, channels, epilogue, rows) calls
 S2_SHAPES: dict = {}
 # label -> [calls, largest |kernel - plain|, every comparison within tolerance]
 S2_ERRS: dict = {}
@@ -1194,23 +1199,20 @@ def within(got, want, tol) -> tuple:
 
 
 def s2_forward_diff(x, got, want) -> tuple:
-    """A forward's (largest |kernel - plain|, within S2_TOL) over its output
-    and, when the kernel kept them, its statistics."""
-    out, mean, rstd = got
-    pairs = [(out, want[0], S2_TOL[s2_kind(x.dtype)] * float(want[0].float().abs().max()))]
-    if mean is not None:
-        pairs += [(mean, want[1], S2_TOL["mean"] * float(x.float().abs().max())),
-                  (rstd, want[2], S2_TOL["rstd"] * want[2].abs())]
-    checks = [within(*pair) for pair in pairs]
-    return max(e for e, _ in checks), all(ok for _, ok in checks)
+    """A forward's (largest |kernel - plain|, within S2_TOL) over its
+    output."""
+    return within(got, want, S2_TOL[s2_kind(x.dtype)] * float(want.float().abs().max()))
 
 
-def s2_backward_diff(args, got, want) -> tuple:
+def s2_backward_diff(args, out, got, want) -> tuple:
     """A backward's (largest |kernel - plain|, within S2_TOL) over dx, the
-    parameters' gradients (against each channel's sum of |terms|) and dres."""
-    dout, x, out, mean, rstd, weight, epilogue = args
+    parameters' gradients (against each channel's sum of |terms|) and dres;
+    ``args`` the backward's, ``out`` the kernel forward's output, whose
+    mask both versions took."""
+    dout, x, weight, bias, epilogue, residual = args
     c = x.shape[-1]
     dy = (dout if epilogue is None else torch.where(out > 0, dout, 0)).float().reshape(-1, c)
+    mean, rstd = tln.layer_norm_stats(x)
     xhat = (x.float() - mean[..., None]) * rstd[..., None]
     mass = [(dy * xhat.reshape(-1, c)).abs().sum(0), dy.abs().sum(0)]
     pairs = [(got[0], want[0], S2_TOL[s2_kind(x.dtype)] * float(want[0].float().abs().max())),
@@ -1220,6 +1222,16 @@ def s2_backward_diff(args, got, want) -> tuple:
         pairs.append((got[3], want[3], 0.0))
     checks = [within(*pair) for pair in pairs]
     return max(e for e, _ in checks), all(ok for _, ok in checks)
+
+
+def s2_kernel_out(launch, x, weight, bias, epilogue, residual):
+    """S2a's output on these inputs by ``launch`` (``tln._launch_forward``),
+    to give the plain backward the mask the kernel's backward computes
+    again; a comparison's launch, not counted."""
+    launches = tln.layer_norm_forward.launches
+    out = launch(x, weight, bias, epilogue, residual)
+    tln.layer_norm_forward.launches = launches
+    return out
 
 
 def note_s2(path: str, result: tuple) -> None:
@@ -1237,26 +1249,30 @@ def held_s2(path: str, hold: bool = True):
     real_fwd, real_bwd = tln._launch_forward, tln._launch_backward
     shapes = S2_SHAPES.setdefault(path, collections.Counter())
 
-    def forward(x, weight, bias, epilogue, residual, stats):
+    def forward(x, weight, bias, epilogue, residual):
         c = x.shape[-1]
-        shapes["S2a", x.dtype, c, epilogue, x.numel() // c, stats] += 1
+        shapes["S2a", x.dtype, c, epilogue, x.numel() // c] += 1
         if not hold:
-            return real_fwd(x, weight, bias, epilogue, residual, stats)
+            return real_fwd(x, weight, bias, epilogue, residual)
         copies = [None if t is None else t.clone() for t in (x, weight, bias, residual)]
-        got = real_fwd(x, weight, bias, epilogue, residual, stats)
+        got = real_fwd(x, weight, bias, epilogue, residual)
         want = tln.layer_norm_reference(copies[0], copies[1], copies[2], epilogue, copies[3])
         note_s2(path, s2_forward_diff(x, got, want))
         return got
 
-    def backward(dout, x, out, mean, rstd, weight, epilogue):
+    def backward(dout, x, weight, bias, epilogue, residual):
         c = x.shape[-1]
-        shapes["S2b", x.dtype, c, epilogue, x.numel() // c, True] += 1
+        shapes["S2b", x.dtype, c, epilogue, x.numel() // c] += 1
         if not hold:
-            return real_bwd(dout, x, out, mean, rstd, weight, epilogue)
-        copies = [None if t is None else t.clone() for t in (dout, x, out, mean, rstd, weight)]
-        got = real_bwd(dout, x, out, mean, rstd, weight, epilogue)
-        want = tln.layer_norm_backward_reference(*copies, epilogue)
-        note_s2(path, s2_backward_diff((*copies, epilogue), got, want))
+            return real_bwd(dout, x, weight, bias, epilogue, residual)
+        dout_, x_, weight_, bias_, res_ = (None if t is None else t.clone()
+                                           for t in (dout, x, weight, bias, residual))
+        got = real_bwd(dout, x, weight, bias, epilogue, residual)
+        args = (dout_, x_, weight_, bias_, epilogue, res_)
+        out = (None if epilogue is None else
+               s2_kernel_out(real_fwd, x_, weight_, bias_, epilogue, res_))
+        want = tln.layer_norm_backward_reference(*args, out=out)
+        note_s2(path, s2_backward_diff(args, out, got, want))
         return got
 
     tln._launch_forward, tln._launch_backward = forward, backward
@@ -1288,14 +1304,15 @@ def s2_inputs(dev, dtype, c: int, epilogue, rows: int, seed: int) -> dict:
 
 
 def s2_once(case: dict, epilogue) -> tuple:
-    """One forward (statistics kept) and backward by the kernels and by the
-    plain version: ((kernel, plain) forward, (kernel, plain) backward)."""
+    """One forward and backward by the kernels and by the plain version
+    (given the kernel forward's output for its mask): ((kernel, plain)
+    forward, (backward args, kernel, plain) backward)."""
     x, w, b, res, dout = (case[k] for k in ("x", "weight", "bias", "residual", "dout"))
     fwd = tln.layer_norm_forward(x, w, b, epilogue, res)
     fwd_plain = tln.layer_norm_reference(x, w, b, epilogue, res)
-    args = (dout, x, fwd[0], fwd[1], fwd[2], w, epilogue)
+    args = (dout, x, w, b, epilogue, res)
     return (fwd, fwd_plain), (args, tln.layer_norm_backward(*args),
-                              tln.layer_norm_backward_reference(*args))
+                              tln.layer_norm_backward_reference(*args, out=fwd))
 
 
 def layer_norm_equal_path(dev) -> None:
@@ -1312,7 +1329,7 @@ def layer_norm_equal_path(dev) -> None:
                     (fwd, fwd_plain), (args, bwd, bwd_plain) = s2_once(case, epilogue)
                     again = tln.layer_norm_backward(*args)
                     f_err, f_ok = s2_forward_diff(case["x"], fwd, fwd_plain)
-                    b_err, b_ok = s2_backward_diff(args, bwd, bwd_plain)
+                    b_err, b_ok = s2_backward_diff(args, fwd, bwd, bwd_plain)
                     same = all(torch.equal(a, b) for a, b in zip(bwd, again) if a is not None)
                     what = f"S2 {s2_kind(dtype)} C={c} {epilogue} rows={rows}"
                     require(f_ok, f"{what}: the forward vs plain ({f_err})")
@@ -1331,18 +1348,17 @@ def layer_norm_equal_path(dev) -> None:
     require(y.is_contiguous(), "the convolutions' NHWC outputs are contiguous")
 
 
-def s2_bound(kernel: str, dtype, c: int, epilogue, rows: int, stats: bool) -> tuple:
-    """(bound_ms, bound_by) of one launch: each tensor the function reads or
-    writes once at 3.35 TB/s, against its float operations (about 8 an
-    element forward, 14 backward) at the float32 peak."""
+def s2_bound(kernel: str, dtype, c: int, epilogue, rows: int) -> tuple:
+    """(bound_ms, bound_by) of one launch: the bytes the function needs,
+    each read or written once, at 3.35 TB/s, against its float operations
+    (about 9 an element forward; 22 backward, which computes the
+    statistics and y again) at the float32 peak."""
     e = rows * c * (2 if dtype == torch.bfloat16 else 4)
-    if kernel == "S2a":  # x in, out out, the residual in, the statistics out
-        nbytes = 2 * e + (e if epilogue == "residual" else 0) + (8 * rows if stats else 0) + 8 * c
-        flops = 8 * rows * c
-    else:  # dout, x, the output (its mask) and the statistics in; dx, dres out
-        nbytes = (3 * e if epilogue is not None else 2 * e) + e + (
-            e if epilogue == "residual" else 0) + 8 * rows + 12 * c
-        flops = 14 * rows * c
+    res = e if epilogue == "residual" else 0
+    if kernel == "S2a":  # x and the residual in, out out; gamma and beta
+        nbytes, flops = 2 * e + res + 8 * c, 9 * rows * c
+    else:  # dout, x and the residual in, dx and dres out; the parameters in, their grads out
+        nbytes, flops = 3 * e + 2 * res + 16 * c, 22 * rows * c
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
@@ -1357,21 +1373,41 @@ def s2_library(x, w, b, epilogue, residual):
 
 
 def device_ms(fn, reps: int) -> float:
-    """The device time of the launches one call of ``fn`` makes: the sum
-    of their kernels' intervals under torch.profiler over ``reps`` calls,
-    over ``reps``.  A short kernel's time without its wrapper's host time,
-    which back-to-back events measure instead when the host is slower."""
+    """The card's time a call of ``fn``: CUDA events around ``reps`` calls
+    enqueued behind a spin kernel (``torch.cuda._sleep``) that outlasts
+    the host's enqueue, so that the card runs them back to back without
+    waiting on the host.  The gaps between launches count, and so do the
+    writes a launch leaves to drain from L2 into the next one, as in a
+    net's run; torch.profiler's kernel intervals leave both out (by them a
+    ``clone`` of 256 MiB read 5.0 TB/s on an H100 80GB HBM3)."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"
-               and not getattr(e, "is_user_annotation", False)]
-    require(bool(kernels), "the profiler saw the card's kernels")
-    return sum(e.time_range.elapsed_us() for e in kernels) / reps / 1e3
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    enqueue_s = time.perf_counter() - t  # at least the host's enqueue of reps calls
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(1.5 * enqueue_s * CLOCK_HZ) + 100_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def rotation(fns: list):
+    """A call that runs ``fns`` in turn, keeping the last ``len(fns)``
+    results alive, so that no launch finds its inputs, or its output's
+    memory, still in L2 from the one before (``S2_ROTATE_BYTES``)."""
+    kept = collections.deque(maxlen=len(fns))
+    turn = itertools.count()
+
+    def call():
+        kept.append(fns[next(turn) % len(fns)]())
+    return call
 
 
 def layer_norm_rate_path(dev, card: str, launches: dict) -> list:
@@ -1380,48 +1416,73 @@ def layer_norm_rate_path(dev, card: str, launches: dict) -> list:
     forward and backward): the device time of a launch (``device_ms``) and
     a call's time back to back, of the kernel, the plain version and the
     library composite (``s2_library``, forward and its autograd backward),
+    each cycling through ``S2_ROTATE_BYTES`` of inputs (``rotation``),
     beside the bound; then, per path, the device times' sums over one net
-    call or step.  Returns the kernels line's S2 entries."""
+    call or step.  Returns the kernels line's S2 entries.
+
+    First the same timing on PyTorch's own copy (``clone`` of 256 MiB,
+    two sources in turn): the rate the card reaches on bytes read and
+    written once, beside the 3.35 TB/s the bounds take."""
+    copies = [torch.empty(S2_ROTATE_BYTES, dtype=torch.uint8, device=dev) for _ in range(2)]
+    fns = [functools.partial(torch.clone, t) for t in copies]
+    ms = device_ms(rotation(fns), S2_REPS)
+    wall = statistics.median(back_to_back_ms(rotation(fns), S2_REPS))
+    print(f"[S2 rate] HBM: torch.clone of {S2_ROTATE_BYTES} bytes, timed as S2 is: device ms a "
+          f"call {ms} ({2 * S2_ROTATE_BYTES / ms / 1e9} TB/s read and written), back to back "
+          f"{wall} ({2 * S2_ROTATE_BYTES / wall / 1e9} TB/s); the bounds take "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s [{card}]")
+    del copies, fns
     per_key = {}
     for path, counter in S2_SHAPES.items():
         for key in counter:
             per_key.setdefault(key, []).append(path)
     timed = {}
     for key, paths in per_key.items():
-        kernel, dtype, c, epilogue, rows, stats = key
-        case = s2_inputs(dev, dtype, c, epilogue, rows, seed=c)
-        x, w, b, res, dout = (case[k] for k in ("x", "weight", "bias", "residual", "dout"))
-        (fwd, fwd_plain), (args, bwd, bwd_plain) = s2_once(case, epilogue)
-        if kernel == "S2a":
-            err, ok = s2_forward_diff(x, fwd, fwd_plain)
-            run = lambda: tln.layer_norm_forward(x, w, b, epilogue, res, stats)  # noqa: E731
-            plain = lambda: tln.layer_norm_reference(x, w, b, epilogue, res)  # noqa: E731
-            library = lambda: s2_library(x, w, b, epilogue, res)  # noqa: E731
-        else:
-            err, ok = s2_backward_diff(args, bwd, bwd_plain)
-            leaves = [t.detach().clone().requires_grad_() for t in (x, w, b, res) if t is not None]
-            lib_out = s2_library(leaves[0], leaves[1], leaves[2], epilogue,
-                                 leaves[3] if len(leaves) == 4 else None)
-            run = lambda: tln.layer_norm_backward(*args)  # noqa: E731
-            plain = lambda: tln.layer_norm_backward_reference(*args)  # noqa: E731
-            library = lambda: torch.autograd.grad(lib_out, leaves, dout,  # noqa: E731
-                                                  retain_graph=True)
-        require(ok, f"S2 {key}: kernel vs plain ({err})")
-        ms, wall = {}, {}
-        for name, fn in (("kernel", run), ("plain", plain), ("library", library)):
-            ms[name] = device_ms(fn, S2_REPS)
-            wall[name] = statistics.median(back_to_back_ms(fn, S2_REPS))
+        kernel, dtype, c, epilogue, rows = key
         bound_ms, by = s2_bound(*key)
+        copies = max(2, math.ceil(S2_ROTATE_BYTES / (bound_ms * 1e-3 * HBM_BYTES_PER_S)))
+        cases = [s2_inputs(dev, dtype, c, epilogue, rows, seed=c + i) for i in range(copies)]
+        (fwd, fwd_plain), (args, bwd, bwd_plain) = s2_once(cases[0], epilogue)
+        if kernel == "S2a":
+            err, ok = s2_forward_diff(args[1], fwd, fwd_plain)
+        else:
+            err, ok = s2_backward_diff(args, fwd, bwd, bwd_plain)
+        require(ok, f"S2 {key}: kernel vs plain ({err})")
+        fns = {"kernel": [], "plain": [], "library": []}
+        for case in cases:
+            x, w, b, res, dout = (case[k] for k in ("x", "weight", "bias", "residual", "dout"))
+            if kernel == "S2a":
+                fns["kernel"].append(functools.partial(tln.layer_norm_forward, x, w, b, epilogue,
+                                                       res))
+                fns["plain"].append(functools.partial(tln.layer_norm_reference, x, w, b,
+                                                      epilogue, res))
+                fns["library"].append(functools.partial(s2_library, x, w, b, epilogue, res))
+            else:
+                bargs = (dout, x, w, b, epilogue, res)
+                leaves = [t.detach().clone().requires_grad_() for t in (x, w, b, res)
+                          if t is not None]
+                lib_out = s2_library(leaves[0], leaves[1], leaves[2], epilogue,
+                                     leaves[3] if len(leaves) == 4 else None)
+                fns["kernel"].append(functools.partial(tln.layer_norm_backward, *bargs))
+                fns["plain"].append(functools.partial(tln.layer_norm_backward_reference, *bargs))
+                fns["library"].append(functools.partial(torch.autograd.grad, lib_out, leaves,
+                                                        dout, retain_graph=True))
+        ms, wall = {}, {}
+        for name, group in fns.items():
+            ms[name] = device_ms(rotation(group), S2_REPS)
+            wall[name] = statistics.median(back_to_back_ms(rotation(group), S2_REPS))
+        del cases, fns
         timed[key] = (ms, bound_ms, by, err)
         calls = ", ".join(f"{p} x{S2_SHAPES[p][key] / S2_PATHS[p][0]} {S2_PATHS[p][1]}"
                           for p in paths)
-        print(f"[S2 rate] {kernel} {s2_kind(dtype)} C={c} {epilogue} rows={rows} stats={stats} "
-              f"({calls}): device ms a call (torch.profiler, {S2_REPS} calls) kernel "
-              f"{ms['kernel']}, plain {ms['plain']}, library {ms['library']} (F.layer_norm on a "
-              f"float32 copy, cast, ReLU, add{', autograd backward' if kernel == 'S2b' else ''}); "
-              f"bound {bound_ms} ms ({by}), the kernel at {bound_ms / ms['kernel']} of it; a call "
-              f"back to back ({S2_REPS}, host included) kernel {wall['kernel']}, plain "
-              f"{wall['plain']}, library {wall['library']} ms; max_abs_err {err} [{card}]")
+        print(f"[S2 rate] {kernel} {s2_kind(dtype)} C={c} {epilogue} rows={rows} ({calls}): "
+              f"device ms a call ({S2_REPS} calls back to back behind a spin kernel, cycling "
+              f"through {copies} input sets) kernel {ms['kernel']}, plain {ms['plain']}, library "
+              f"{ms['library']} (F.layer_norm on a float32 copy, cast, ReLU, add"
+              f"{', autograd backward' if kernel == 'S2b' else ''}); bound {bound_ms} ms ({by}), "
+              f"the kernel at {bound_ms / ms['kernel']} of it; a call back to back ({S2_REPS}, "
+              f"host included) kernel {wall['kernel']}, plain {wall['plain']}, library "
+              f"{wall['library']} ms; max_abs_err {err} [{card}]")
 
     reports = []
     names = {"S2a": "layer_norm_forward", "S2b": "layer_norm_backward"}

@@ -142,7 +142,8 @@ def test_forward_matches_flax(case):
     want, mu, var, _ = flax_records(kind)[case_id(case)]
     x, w, b, res = torch_inputs(inputs, dtype)
     res = res if epi == "residual" else None
-    out, mean, rstd = tln.layer_norm_reference(x, w, b, epi, res)
+    out = tln.layer_norm_reference(x, w, b, epi, res)
+    mean, rstd = tln.layer_norm_stats(x)
     assert out.dtype == dtype and mean.dtype == rstd.dtype == torch.float32
     assert_close(out, want, TOL[kind], f"forward C={c} {kind} {epi}")
     # the entry point on CPU tensors is the plain version
@@ -193,6 +194,29 @@ def test_gradcheck_plain_path(epilogue):
     pre = tln.layer_norm(x, w, b) + (res if epilogue == "residual" else 0)
     assert bool((pre.abs() > 1e-3).all())
     assert torch.autograd.gradcheck(fn, args, eps=1e-6, atol=1e-7, rtol=1e-6)
+
+
+@pytest.mark.parametrize("kind", DTYPES)
+@pytest.mark.parametrize("epilogue", EPILOGUES)
+def test_backward_mask_is_the_forwards(epilogue, kind):
+    """The backward takes the forward's inputs and computes its ReLU mask
+    again: the same gradients as when it is given the forward's output,
+    also where a row's y lands exactly on 0 (a constant row's y is the
+    bias)."""
+    dtype = DTYPES[kind][0]
+    d = draw(32, seed=40 + EPILOGUES.index(epilogue))
+    x, w, b, res = torch_inputs(d, dtype)
+    x[0, 0, 0] = 0.5  # a constant row: var 0, y = bias
+    b[::4] = 0.0
+    res = res if epilogue == "residual" else None
+    dout = torch.from_numpy(d["dout"]).to(dtype)
+    out = tln.layer_norm_reference(x, w, b, epilogue, res)
+    again = tln.layer_norm_backward(dout, x, w, b, epilogue, res)
+    given = tln.layer_norm_backward_reference(dout, x, w, b, epilogue, res, out=out)
+    for got, want in zip(again, given):
+        assert (got is None) == (want is None)
+        if got is not None:
+            assert torch.equal(got, want)
 
 
 def test_cpu_net_launches_no_kernel():
@@ -255,9 +279,15 @@ def test_wrapper_checks():
         tln.layer_norm(x.to("meta"), w.to("meta"), b.to("meta"))
     odd = torch.zeros(4 * 32 + 1)[1:].view(4, 32)  # 4 bytes past an aligned start
     with pytest.raises(ValueError, match="aligned"):
-        tln._check("x", odd, odd.shape, odd.dtype, odd.device)
+        tln._pointers(odd, (odd,), ())
+    with pytest.raises(ValueError, match="aligned"):
+        tln._pointers(x, (x.t().contiguous().t(),), ())
     with pytest.raises(ValueError, match="must be"):
-        tln._check("weight", w.double(), (48,), torch.float32, w.device)
+        tln._pointers(x, (), (w.double(),))
+    with pytest.raises(ValueError, match="must be"):
+        tln._pointers(x, (x[:2],), ())
+    assert tln._pointers(x, (x, None), (w, b)) == [x.data_ptr(), None, w.data_ptr(),
+                                                   b.data_ptr()]
 
 
 @pytest.mark.parametrize("name, label", [
@@ -265,6 +295,11 @@ def test_wrapper_checks():
      "(const __nv_bfloat16 *, const float *, const float *, const __nv_bfloat16 *, "
      "__nv_bfloat16 *, float *, float *, long long)", "S2a layer_norm forward"),
     ("void (anonymous namespace)::layer_norm_backward_kernel<float, 256, 0>(...)",
+     "S2b layer_norm backward"),
+    ("void (anonymous namespace)::layer_norm_forward_kernel<float, 64>(const float *, "
+     "const float *, const float *, const float *, float *, long long, int)",
+     "S2a layer_norm forward"),
+    ("void (anonymous namespace)::layer_norm_backward_kernel<__nv_bfloat16, 64>(...)",
      "S2b layer_norm backward"),
     ("void (anonymous namespace)::layer_norm_param_grad_kernel(const float *, int, int, "
      "float *, float *)", "S2b layer_norm backward"),

@@ -25,8 +25,14 @@
 // The statistics are summed in another order than the plain version's, so
 // the two agree to a few float32 ulps before the rounding to T.
 //
-// Backward, from dout, the saved input x, the saved float32 mean and rstd
-// and, under an epilogue, the output (its ReLU mask out > 0):
+// Backward, from dout and the forward's inputs (x, gamma, beta and, under
+// the residual epilogue, res): the row's statistics and y again, by the
+// forward's own arithmetic (row_stats and affine below: the same lanes, the
+// same order, every rounding explicit), so the ReLU mask is bit for bit the
+// forward's out > 0 without reading out:
+//   relu: round(y) > 0; residual: res + round(y) > 0 (two T values: their
+//   float32 sum is zero only when the exact sum is, and otherwise rounds
+//   to a nonzero T);
 //   dy = dout masked; xhat = (x - mean) * rstd; g = dy * gamma;
 //   dx = rstd * (g - sum(g) / C - xhat * sum(g * xhat) / C), rounded to T;
 //   dres = dy (exact in T) under the residual epilogue;
@@ -43,10 +49,11 @@
 // a warp holds 32 / LANES neighbouring rows, so a warp's loads are
 // contiguous.  The row's two sums go by XOR shuffles inside its lanes.  The
 // row stays in registers between the statistics and the store, so x is read
-// once: S2a moves rows * C * sizeof(T) in and out (and the residual in),
-// and S2b reads dout, x and the output and writes dx (and dres).  Both are
-// bound by those bytes at 3.35 TB/s; they compute a few operations an
-// element.
+// once: S2a reads x (and res) and writes out; S2b reads dout, x (and res)
+// and writes dx (and dres): the bytes the function needs, at 3.35 TB/s,
+// against a few dozen float operations an element.  The epilogue is a
+// kernel argument, uniform over a launch; dtype and C are template
+// parameters (24 instantiations).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (see ops/_cuda.py).  Plain C entry points, bound with
@@ -134,11 +141,36 @@ __device__ __forceinline__ float row_sum(float v) {
 
 __device__ __forceinline__ float relu(float v) { return v < 0.0f ? 0.0f : v; }
 
-template <typename T, int C, int EPI>
+// A row's (mean, rstd) from its lanes' elements: every rounding explicit, so
+// S2a and S2b, which hold a row in the same lanes, get the same bits.
+template <typename T, int C>
+__device__ __forceinline__ float2 row_stats(const float (&v)[Rows<T, C>::ITEMS][Rows<T, C>::V]) {
+  using R = Rows<T, C>;
+  float s = 0.0f, ss = 0.0f;
+#pragma unroll
+  for (int k = 0; k < R::ITEMS; ++k) {
+#pragma unroll
+    for (int j = 0; j < R::V; ++j) {
+      s = __fadd_rn(s, v[k][j]);
+      ss = __fmaf_rn(v[k][j], v[k][j], ss);
+    }
+  }
+  s = row_sum<R::LANES>(s);
+  ss = row_sum<R::LANES>(ss);
+  const float mean = __fmul_rn(s, 1.0f / C);  // C is a power of two: exact
+  const float var = fmaxf(__fsub_rn(__fmul_rn(ss, 1.0f / C), __fmul_rn(mean, mean)), 0.0f);
+  return make_float2(mean, rsqrtf(__fadd_rn(var, EPS)));
+}
+
+// y = (x - mean) * (rstd * gamma) + beta, rounded as S2a and S2b both take it
+__device__ __forceinline__ float affine(float x, float2 st, float g, float b) {
+  return __fmaf_rn(__fsub_rn(x, st.x), __fmul_rn(st.y, g), b);
+}
+
+template <typename T, int C>
 __global__ void __launch_bounds__(THREADS) layer_norm_forward_kernel(
     const T* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
-    const T* __restrict__ res, T* __restrict__ out, float* __restrict__ mean_out,
-    float* __restrict__ rstd_out, long long rows) {
+    const T* __restrict__ res, T* __restrict__ out, long long rows, int epilogue) {
   using R = Rows<T, C>;
   constexpr int V = R::V;
   const int sub = threadIdx.x % R::LANES;
@@ -147,32 +179,17 @@ __global__ void __launch_bounds__(THREADS) layer_norm_forward_kernel(
   const long long base = row * C;
 
   float v[R::ITEMS][V];
-  float s = 0.0f, ss = 0.0f;
 #pragma unroll
   for (int k = 0; k < R::ITEMS; ++k) {
-    const int c = (k * R::LANES + sub) * V;
     if (live) {
-      Vec<T>::load(x + base + c, v[k]);
+      Vec<T>::load(x + base + (k * R::LANES + sub) * V, v[k]);
     } else {
 #pragma unroll
       for (int j = 0; j < V; ++j) v[k][j] = 0.0f;
     }
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      s += v[k][j];
-      ss += v[k][j] * v[k][j];
-    }
   }
-  s = row_sum<R::LANES>(s);
-  ss = row_sum<R::LANES>(ss);
-  const float mean = s * (1.0f / C);  // C is a power of two: exact
-  const float var = fmaxf(ss * (1.0f / C) - mean * mean, 0.0f);
-  const float rstd = rsqrtf(var + EPS);
+  const float2 st = row_stats<T, C>(v);
   if (!live) return;
-  if (mean_out != nullptr && sub == 0) {
-    mean_out[row] = mean;
-    rstd_out[row] = rstd;
-  }
 #pragma unroll
   for (int k = 0; k < R::ITEMS; ++k) {
     const int c = (k * R::LANES + sub) * V;
@@ -180,15 +197,15 @@ __global__ void __launch_bounds__(THREADS) layer_norm_forward_kernel(
     load_params<V>(gamma + c, g);
     load_params<V>(beta + c, b);
 #pragma unroll
-    for (int j = 0; j < V; ++j) y[j] = (v[k][j] - mean) * (rstd * g[j]) + b[j];
-    if (EPI == EPI_RELU) {
+    for (int j = 0; j < V; ++j) y[j] = affine(v[k][j], st, g[j], b[j]);
+    if (epilogue == EPI_RELU) {
 #pragma unroll
       for (int j = 0; j < V; ++j) y[j] = relu(y[j]);
-    } else if (EPI == EPI_RESIDUAL) {
+    } else if (epilogue == EPI_RESIDUAL) {
       float r[V];
       Vec<T>::load(res + base + c, r);
 #pragma unroll
-      for (int j = 0; j < V; ++j) y[j] = relu(r[j] + Vec<T>::round(y[j]));
+      for (int j = 0; j < V; ++j) y[j] = relu(__fadd_rn(r[j], Vec<T>::round(y[j])));
     }
     Vec<T>::store(out + base + c, y);
   }
@@ -197,12 +214,11 @@ __global__ void __launch_bounds__(THREADS) layer_norm_forward_kernel(
 // Rows are dealt to the grid's row groups in turn (a grid-stride loop);
 // ``part`` receives each block's float32 partial dgamma [gridDim.x, C] then
 // dbeta [gridDim.x, C].
-template <typename T, int C, int EPI>
+template <typename T, int C>
 __global__ void __launch_bounds__(THREADS) layer_norm_backward_kernel(
-    const T* __restrict__ dout, const T* __restrict__ x, const T* __restrict__ out,
-    const float* __restrict__ mean, const float* __restrict__ rstd,
-    const float* __restrict__ gamma, T* __restrict__ dx, T* __restrict__ dres,
-    float* __restrict__ part, long long rows) {
+    const T* __restrict__ dout, const T* __restrict__ x, const T* __restrict__ res,
+    const float* __restrict__ gamma, const float* __restrict__ beta, T* __restrict__ dx,
+    T* __restrict__ dres, float* __restrict__ part, long long rows, int epilogue) {
   using R = Rows<T, C>;
   constexpr int V = R::V;
   __shared__ float red[2][R::PER_BLOCK][C];
@@ -223,30 +239,38 @@ __global__ void __launch_bounds__(THREADS) layer_norm_backward_kernel(
     const long long row = first + grp;
     const bool live = row < rows;
     const long long base = row * C;
-    const float m = live ? mean[row] : 0.0f;
-    const float r = live ? rstd[row] : 0.0f;
     float dy[R::ITEMS][V], xh[R::ITEMS][V];
-    float a = 0.0f, b = 0.0f;
 #pragma unroll
     for (int k = 0; k < R::ITEMS; ++k) {
       const int c = (k * R::LANES + sub) * V;
       if (live) {
         Vec<T>::load(dout + base + c, dy[k]);
         Vec<T>::load(x + base + c, xh[k]);
-        if (EPI != EPI_NONE) {
-          float o[V];
-          Vec<T>::load(out + base + c, o);
-#pragma unroll
-          for (int j = 0; j < V; ++j) dy[k][j] = o[j] > 0.0f ? dy[k][j] : 0.0f;
-        }
-        if (EPI == EPI_RESIDUAL) Vec<T>::store(dres + base + c, dy[k]);  // exact in T
       } else {
 #pragma unroll
         for (int j = 0; j < V; ++j) dy[k][j] = xh[k][j] = 0.0f;
       }
+    }
+    const float2 st = row_stats<T, C>(xh);
+    float a = 0.0f, b = 0.0f;
+#pragma unroll
+    for (int k = 0; k < R::ITEMS; ++k) {
+      const int c = (k * R::LANES + sub) * V;
+      if (live && epilogue != EPI_NONE) {  // the forward's out > 0
+        float bt[V], r[V];
+        load_params<V>(beta + c, bt);
+        if (epilogue == EPI_RESIDUAL) Vec<T>::load(res + base + c, r);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          float y = Vec<T>::round(affine(xh[k][j], st, g[k][j], bt[j]));
+          if (epilogue == EPI_RESIDUAL) y = __fadd_rn(r[j], y);
+          dy[k][j] = y > 0.0f ? dy[k][j] : 0.0f;
+        }
+        if (epilogue == EPI_RESIDUAL) Vec<T>::store(dres + base + c, dy[k]);  // exact in T
+      }
 #pragma unroll
       for (int j = 0; j < V; ++j) {
-        xh[k][j] = (xh[k][j] - m) * r;
+        xh[k][j] = (xh[k][j] - st.x) * st.y;
         const float gj = dy[k][j] * g[k][j];
         a += gj;
         b += gj * xh[k][j];
@@ -261,7 +285,7 @@ __global__ void __launch_bounds__(THREADS) layer_norm_backward_kernel(
     for (int k = 0; k < R::ITEMS; ++k) {
       float d[V];
 #pragma unroll
-      for (int j = 0; j < V; ++j) d[j] = r * (dy[k][j] * g[k][j] - a - xh[k][j] * b);
+      for (int j = 0; j < V; ++j) d[j] = st.y * (dy[k][j] * g[k][j] - a - xh[k][j] * b);
       Vec<T>::store(dx + base + (k * R::LANES + sub) * V, d);
     }
   }
@@ -308,19 +332,17 @@ struct ForwardArgs {
   const float* beta;
   const void* res;
   void* out;
-  float* mean;
-  float* rstd;
   long long rows;
+  int epilogue;
   cudaStream_t stream;
 };
 
 struct BackwardArgs {
   const void* dout;
   const void* x;
-  const void* out;
-  const float* mean;
-  const float* rstd;
+  const void* res;
   const float* gamma;
+  const float* beta;
   void* dx;
   void* dres;
   float* part;
@@ -328,31 +350,32 @@ struct BackwardArgs {
   float* dbeta;
   int max_blocks;
   long long rows;
+  int epilogue;
   cudaStream_t stream;
 };
 
 struct Forward {
-  template <typename T, int C, int EPI>
+  template <typename T, int C>
   static int run(const ForwardArgs& a) {
     using R = Rows<T, C>;
     if (a.rows == 0) return 0;
     const long long blocks = (a.rows + R::PER_BLOCK - 1) / R::PER_BLOCK;
-    layer_norm_forward_kernel<T, C, EPI><<<(unsigned)blocks, THREADS, 0, a.stream>>>(
-        (const T*)a.x, a.gamma, a.beta, (const T*)a.res, (T*)a.out, a.mean, a.rstd, a.rows);
+    layer_norm_forward_kernel<T, C><<<(unsigned)blocks, THREADS, 0, a.stream>>>(
+        (const T*)a.x, a.gamma, a.beta, (const T*)a.res, (T*)a.out, a.rows, a.epilogue);
     return (int)cudaGetLastError();
   }
 };
 
 struct Backward {
-  template <typename T, int C, int EPI>
+  template <typename T, int C>
   static int run(const BackwardArgs& a) {
     using R = Rows<T, C>;
     long long blocks = (a.rows + R::PER_BLOCK - 1) / R::PER_BLOCK;
     if (blocks > a.max_blocks) blocks = a.max_blocks;
     if (blocks > 0) {
-      layer_norm_backward_kernel<T, C, EPI><<<(unsigned)blocks, THREADS, 0, a.stream>>>(
-          (const T*)a.dout, (const T*)a.x, (const T*)a.out, a.mean, a.rstd, a.gamma, (T*)a.dx,
-          (T*)a.dres, a.part, a.rows);
+      layer_norm_backward_kernel<T, C><<<(unsigned)blocks, THREADS, 0, a.stream>>>(
+          (const T*)a.dout, (const T*)a.x, (const T*)a.res, a.gamma, a.beta, (T*)a.dx,
+          (T*)a.dres, a.part, a.rows, a.epilogue);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
@@ -363,36 +386,28 @@ struct Backward {
   }
 };
 
-// F::run<T, C, EPI>(args) for the runtime (dtype, channels, epilogue):
-// dtype 0 float32, 1 bfloat16; channels 8-256, a power of two.
-template <class F, typename T, int C, class A>
-int by_epilogue(int epilogue, const A& a) {
-  switch (epilogue) {
-    case EPI_NONE: return F::template run<T, C, EPI_NONE>(a);
-    case EPI_RELU: return F::template run<T, C, EPI_RELU>(a);
-    case EPI_RESIDUAL: return F::template run<T, C, EPI_RESIDUAL>(a);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
+// F::run<T, C>(args) for the runtime (dtype, channels): dtype 0 float32,
+// 1 bfloat16; channels 8-256, a power of two.
 template <class F, typename T, class A>
-int by_channels(int channels, int epilogue, const A& a) {
+int by_channels(int channels, const A& a) {
   switch (channels) {
-    case 8: return by_epilogue<F, T, 8>(epilogue, a);
-    case 16: return by_epilogue<F, T, 16>(epilogue, a);
-    case 32: return by_epilogue<F, T, 32>(epilogue, a);
-    case 64: return by_epilogue<F, T, 64>(epilogue, a);
-    case 128: return by_epilogue<F, T, 128>(epilogue, a);
-    case 256: return by_epilogue<F, T, 256>(epilogue, a);
+    case 8: return F::template run<T, 8>(a);
+    case 16: return F::template run<T, 16>(a);
+    case 32: return F::template run<T, 32>(a);
+    case 64: return F::template run<T, 64>(a);
+    case 128: return F::template run<T, 128>(a);
+    case 256: return F::template run<T, 256>(a);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 template <class F, class A>
-int dispatch(int dtype, int channels, int epilogue, const A& a) {
-  if (a.rows < 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return by_channels<F, float>(channels, epilogue, a);
-  if (dtype == 1) return by_channels<F, __nv_bfloat16>(channels, epilogue, a);
+int dispatch(int dtype, int channels, const A& a) {
+  if (a.rows < 0 || a.epilogue < EPI_NONE || a.epilogue > EPI_RESIDUAL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dtype == 0) return by_channels<F, float>(channels, a);
+  if (dtype == 1) return by_channels<F, __nv_bfloat16>(channels, a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -403,37 +418,35 @@ extern "C" {
 // Launch S2a on ``stream``; returns a CUDA error code (0 = ok).  x, res and
 // out are [rows, channels] of the type ``dtype`` names, gamma and beta
 // float32 [channels], every pointer 16-byte aligned; ``res`` is read under
-// the residual epilogue only; ``mean`` and ``rstd`` (float32 [rows]) may be
-// null, else they receive the statistics the backward reads.
+// the residual epilogue only.
 int twixt_layer_norm_forward(const void* x, const void* gamma, const void* beta,
-                             const void* res, void* out, void* mean, void* rstd,
-                             long long rows, int channels, int dtype, int epilogue,
-                             void* stream) {
-  const ForwardArgs a{x,           (const float*)gamma, (const float*)beta, res,
-                      out,         (float*)mean,        (float*)rstd,       rows,
-                      (cudaStream_t)stream};
-  return dispatch<Forward>(dtype, channels, epilogue, a);
+                             const void* res, void* out, long long rows, int channels,
+                             int dtype, int epilogue, void* stream) {
+  const ForwardArgs a{x,    (const float*)gamma, (const float*)beta, res,
+                      out,  rows,                epilogue,           (cudaStream_t)stream};
+  return dispatch<Forward>(dtype, channels, a);
 }
 
-// Launch S2b (two kernels) on ``stream``.  dout, x, out, dx and dres as x
-// above (``out`` read under an epilogue, ``dres`` written under the
-// residual one); ``part`` float32 [2, max_blocks, channels] of scratch;
-// dgamma and dbeta float32 [channels].  The grid is at most ``max_blocks``
-// blocks, fixed by rows and channels, so the sums' order is too.
-int twixt_layer_norm_backward(const void* dout, const void* x, const void* out,
-                              const void* mean, const void* rstd, const void* gamma, void* dx,
-                              void* dres, void* part, void* dgamma, void* dbeta, int max_blocks,
+// Launch S2b (two kernels) on ``stream``.  dout, x, res, dx and dres as x
+// above (``res`` read and ``dres`` written under the residual epilogue
+// only); gamma and beta the forward's; ``part`` float32 [2, max_blocks,
+// channels] of scratch; dgamma and dbeta float32 [channels].  The grid is at
+// most ``max_blocks`` blocks, fixed by rows and channels, so the sums'
+// order is too.
+int twixt_layer_norm_backward(const void* dout, const void* x, const void* res,
+                              const void* gamma, const void* beta, void* dx, void* dres,
+                              void* part, void* dgamma, void* dbeta, int max_blocks,
                               long long rows, int channels, int dtype, int epilogue,
                               void* stream) {
   if (max_blocks < 1) return (int)cudaErrorInvalidValue;
-  const BackwardArgs a{dout,          x,
-                       out,           (const float*)mean,
-                       (const float*)rstd, (const float*)gamma,
-                       dx,            dres,
-                       (float*)part,  (float*)dgamma,
-                       (float*)dbeta, max_blocks,
-                       rows,          (cudaStream_t)stream};
-  return dispatch<Backward>(dtype, channels, epilogue, a);
+  const BackwardArgs a{dout,           x,
+                       res,            (const float*)gamma,
+                       (const float*)beta, dx,
+                       dres,           (float*)part,
+                       (float*)dgamma, (float*)dbeta,
+                       max_blocks,     rows,
+                       epilogue,       (cudaStream_t)stream};
+  return dispatch<Backward>(dtype, channels, a);
 }
 
 const char* twixt_cuda_error_string(int code) {

@@ -15,9 +15,11 @@ rounded to the input's dtype; then the epilogue the net puts after it
 
 :func:`layer_norm` is the differentiable entry point; its backward gives the
 input's gradient, the residual's under ``"residual"``, and the weight's
-and bias's.  The kernels (``csrc/layer_norm.cu``): S2a, the forward with
-its epilogue, and S2b, the backward with the epilogue's mask and the
-parameters' gradients summed deterministically (no float atomics).
+and bias's, from the forward's inputs alone: it computes the statistics
+and the epilogue's ReLU mask again rather than keep them.  The kernels
+(``csrc/layer_norm.cu``): S2a, the forward with its epilogue, and S2b, the
+backward with the epilogue's mask and the parameters' gradients summed
+deterministically (no float atomics).
 
 Dispatch by the input's device, with no fallback: CPU tensors run the plain
 version (:func:`layer_norm_reference`, :func:`layer_norm_backward_reference`);
@@ -29,7 +31,6 @@ parameters, every tensor contiguous and 16-byte aligned.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -51,31 +52,44 @@ def _acc_dtype(x: torch.Tensor):
     return torch.promote_types(x.dtype, torch.float32)
 
 
-def layer_norm_reference(x, weight, bias, epilogue=None, residual=None):
-    """The plain torch version of the forward: ``(out, mean, rstd)``, the
-    statistics in :func:`_acc_dtype` over the last axis."""
-    acc = _acc_dtype(x)
-    xf = x.to(acc)
+def layer_norm_stats(x):
+    """The plain version's statistics over the last axis, in
+    :func:`_acc_dtype`: ``(mean, rstd)``."""
+    xf = x.to(_acc_dtype(x))
     mean = xf.mean(-1)
     var = ((xf * xf).mean(-1) - mean * mean).clamp_min(0.0)
-    rstd = torch.rsqrt(var + LN_EPS)
-    y = (xf - mean[..., None]) * (rstd[..., None] * weight.to(acc)) + bias.to(acc)
+    return mean, torch.rsqrt(var + LN_EPS)
+
+
+def layer_norm_reference(x, weight, bias, epilogue=None, residual=None):
+    """The plain torch version of the forward."""
+    acc = _acc_dtype(x)
+    mean, rstd = layer_norm_stats(x)
+    y = (x.to(acc) - mean[..., None]) * (rstd[..., None] * weight.to(acc)) + bias.to(acc)
     y = y.to(x.dtype)
     if epilogue == "residual":
         y = residual + y
     if epilogue is not None:
         y = torch.relu(y)
-    return y, mean, rstd
+    return y
 
 
-def layer_norm_backward_reference(dout, x, out, mean, rstd, weight, epilogue=None):
+def layer_norm_backward_reference(dout, x, weight, bias, epilogue=None, residual=None,
+                                  out=None):
     """The plain torch version of the backward: ``(dx, dweight, dbias,
-    dresidual)`` (``dresidual`` None but under ``"residual"``).  ``out`` is
-    the forward's output (its ReLU mask; unread without an epilogue)."""
+    dresidual)`` (``dresidual`` None but under ``"residual"``).  The
+    epilogue's ReLU mask is ``out > 0``, ``out`` the forward's output,
+    computed again by the plain forward when not given."""
     acc = _acc_dtype(x)
-    grad = dout if epilogue is None else torch.where(out > 0, dout, torch.zeros_like(dout))
+    if epilogue is None:
+        grad = dout
+    else:
+        if out is None:
+            out = layer_norm_reference(x, weight, bias, epilogue, residual)
+        grad = torch.where(out > 0, dout, torch.zeros_like(dout))
     dy = grad.to(acc)
     c = x.shape[-1]
+    mean, rstd = layer_norm_stats(x)
     xhat = (x.to(acc) - mean[..., None]) * rstd[..., None]
     g = dy * weight.to(acc)
     a = g.sum(-1, keepdim=True) / c
@@ -86,28 +100,27 @@ def layer_norm_backward_reference(dout, x, out, mean, rstd, weight, epilogue=Non
     return dx, dweight, dbias, grad if epilogue == "residual" else None
 
 
-def layer_norm_forward(x, weight, bias, epilogue=None, residual=None, stats=True):
-    """The forward on ``x``'s device: ``(out, mean, rstd)``; on the card the
-    statistics are None unless ``stats``."""
+def layer_norm_forward(x, weight, bias, epilogue=None, residual=None):
+    """The forward on ``x``'s device."""
     device = x.device
     if device.type == "cpu":
         return layer_norm_reference(x, weight, bias, epilogue, residual)
     if device.type != "cuda":
         raise ValueError(f"layer_norm: no kernel for device {device}")
-    return _launch_forward(x, weight, bias, epilogue, residual, stats)
+    return _launch_forward(x, weight, bias, epilogue, residual)
 
 
 layer_norm_forward.launches = 0  # kernel launches, counted by _launch_forward
 
 
-def layer_norm_backward(dout, x, out, mean, rstd, weight, epilogue=None):
+def layer_norm_backward(dout, x, weight, bias, epilogue=None, residual=None):
     """The backward on ``x``'s device: ``(dx, dweight, dbias, dresidual)``."""
     device = x.device
     if device.type == "cpu":
-        return layer_norm_backward_reference(dout, x, out, mean, rstd, weight, epilogue)
+        return layer_norm_backward_reference(dout, x, weight, bias, epilogue, residual)
     if device.type != "cuda":
         raise ValueError(f"layer_norm: no kernel for device {device}")
-    return _launch_backward(dout, x, out, mean, rstd, weight, epilogue)
+    return _launch_backward(dout, x, weight, bias, epilogue, residual)
 
 
 layer_norm_backward.launches = 0  # kernel launches, counted by _launch_backward
@@ -116,25 +129,23 @@ layer_norm_backward.launches = 0  # kernel launches, counted by _launch_backward
 class _LayerNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, residual, epilogue):
-        out, mean, rstd = layer_norm_forward(x, weight, bias, epilogue, residual)
         ctx.epilogue = epilogue
-        ctx.save_for_backward(x, weight, out if epilogue is not None else None, mean, rstd)
-        return out
+        ctx.save_for_backward(x, weight, bias, residual)
+        return layer_norm_forward(x, weight, bias, epilogue, residual)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dout):
-        x, weight, out, mean, rstd = ctx.saved_tensors
-        dx, dweight, dbias, dres = layer_norm_backward(dout.contiguous(), x, out, mean, rstd,
-                                                       weight, ctx.epilogue)
+        x, weight, bias, residual = ctx.saved_tensors
+        dx, dweight, dbias, dres = layer_norm_backward(dout.contiguous(), x, weight, bias,
+                                                       ctx.epilogue, residual)
         return dx, dweight, dbias, dres, None
 
 
 def layer_norm(x, weight, bias, epilogue=None, residual=None):
     """LayerNorm over the last axis of ``x`` with ``epilogue`` (module
     docstring), differentiable in ``x``, ``weight``, ``bias`` and
-    ``residual``.  Without a gradient to record, only the forward runs and
-    no statistics are kept."""
+    ``residual``.  Without a gradient to record, only the forward runs."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"layer_norm: epilogue {epilogue!r} is none of {list(EPILOGUES)}")
     if (epilogue == "residual") != (residual is not None):
@@ -142,17 +153,7 @@ def layer_norm(x, weight, bias, epilogue=None, residual=None):
     inputs = (x, weight, bias, residual)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
         return _LayerNorm.apply(x, weight, bias, residual, epilogue)
-    return layer_norm_forward(x, weight, bias, epilogue, residual, stats=False)[0]
-
-
-def _check(name, t, shape, dtype, device) -> int:
-    """``t``'s data pointer, after checking what the kernels take."""
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"layer_norm: {name} must be {dtype} {tuple(shape)} on {device}, got "
-                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"layer_norm: {name} must be contiguous and 16-byte aligned")
-    return t.data_ptr()
+    return layer_norm_forward(x, weight, bias, epilogue, residual)
 
 
 def _check_rows(x) -> tuple:
@@ -165,18 +166,42 @@ def _check_rows(x) -> tuple:
     return x.numel() // channels, channels, _DTYPES[x.dtype]
 
 
-@functools.cache
-def _kernels():
+def _pointers(x, activations, params) -> list:
+    """The data pointers of ``activations`` (each like ``x``, or None) then
+    of ``params`` (float32 [channels]), after checking what the kernels
+    take: device, dtype, shape, contiguity and 16-byte alignment."""
+    device, shape = x.device, x.shape
+    wants = ((x.dtype, shape),) * len(activations) + ((torch.float32, shape[-1:]),) * len(params)
+    ptrs = []
+    for t, (dtype, want) in zip(activations + params, wants):
+        if t is None:
+            ptrs.append(None)
+            continue
+        if t.dtype != dtype or t.shape != want or t.device != device:
+            raise ValueError(f"layer_norm: a tensor must be {dtype} {tuple(want)} on "
+                             f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+        ptr = t.data_ptr()
+        if ptr % 16 or not t.is_contiguous():
+            raise ValueError("layer_norm: each tensor must be contiguous and 16-byte aligned")
+        ptrs.append(ptr)
+    return ptrs
+
+
+_FORWARD = _BACKWARD = None  # the ctypes entry points, bound at the first launch
+
+
+def _bind():
+    global _FORWARD, _BACKWARD
     lib = _cuda.load("layer_norm")
     forward = lib.twixt_layer_norm_forward
-    forward.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [
+    forward.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     forward.restype = ctypes.c_int
     backward = lib.twixt_layer_norm_backward
-    backward.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_longlong] + [
+    backward.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_longlong] + [
         ctypes.c_int] * 3 + [ctypes.c_void_p]
     backward.restype = ctypes.c_int
-    return forward, backward
+    _FORWARD, _BACKWARD = forward, backward
 
 
 def _check_rc(rc: int, what: str) -> None:
@@ -184,46 +209,39 @@ def _check_rc(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: " + _cuda.error_string("layer_norm", rc))
 
 
-def _launch_forward(x, weight, bias, epilogue, residual, stats):
-    device = x.device
+def _launch_forward(x, weight, bias, epilogue, residual):
+    index = x.get_device()
+    if index != torch.cuda.current_device():  # a stream takes its own device's launches
+        with torch.cuda.device(index):
+            return _launch_forward(x, weight, bias, epilogue, residual)
     rows, c, code = _check_rows(x)
-    ptrs = [_check("x", x, x.shape, x.dtype, device),
-            _check("weight", weight, (c,), torch.float32, device),
-            _check("bias", bias, (c,), torch.float32, device),
-            None if residual is None else _check("residual", residual, x.shape, x.dtype, device)]
     out = torch.empty_like(x)
-    mean = rstd = None
-    if stats:
-        mean = torch.empty(x.shape[:-1], dtype=torch.float32, device=device)
-        rstd = torch.empty_like(mean)
-    with torch.cuda.device(device):
-        rc = _kernels()[0](
-            *ptrs, out.data_ptr(), None if mean is None else mean.data_ptr(),
-            None if rstd is None else rstd.data_ptr(), rows, c, code, EPILOGUES[epilogue],
-            torch.cuda.current_stream(device).cuda_stream)
-        _check_rc(rc, "layer_norm forward")
-        layer_norm_forward.launches += 1
-    return out, mean, rstd
+    ptrs = _pointers(x, (x, residual, out), (weight, bias))
+    if _FORWARD is None:
+        _bind()
+    rc = _FORWARD(ptrs[0], ptrs[3], ptrs[4], ptrs[1], ptrs[2], rows, c, code,
+                  EPILOGUES[epilogue], torch._C._cuda_getCurrentRawStream(index))
+    _check_rc(rc, "layer_norm forward")
+    layer_norm_forward.launches += 1
+    return out
 
 
-def _launch_backward(dout, x, out, mean, rstd, weight, epilogue):
-    device = x.device
+def _launch_backward(dout, x, weight, bias, epilogue, residual):
+    index = x.get_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return _launch_backward(dout, x, weight, bias, epilogue, residual)
     rows, c, code = _check_rows(x)
-    ptrs = [_check("dout", dout, x.shape, x.dtype, device),
-            _check("x", x, x.shape, x.dtype, device),
-            None if epilogue is None else _check("out", out, x.shape, x.dtype, device),
-            _check("mean", mean, x.shape[:-1], torch.float32, device),
-            _check("rstd", rstd, x.shape[:-1], torch.float32, device),
-            _check("weight", weight, (c,), torch.float32, device)]
     dx = torch.empty_like(x)
     dres = torch.empty_like(x) if epilogue == "residual" else None
-    part = torch.empty((2, PARTIAL_BLOCKS, c), dtype=torch.float32, device=device)
-    grads = torch.empty((2, c), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        rc = _kernels()[1](
-            *ptrs, dx.data_ptr(), None if dres is None else dres.data_ptr(), part.data_ptr(),
-            grads[0].data_ptr(), grads[1].data_ptr(), PARTIAL_BLOCKS, rows, c, code,
-            EPILOGUES[epilogue], torch.cuda.current_stream(device).cuda_stream)
-        _check_rc(rc, "layer_norm backward")
-        layer_norm_backward.launches += 1
+    part = torch.empty((2, PARTIAL_BLOCKS, c), dtype=torch.float32, device=x.device)
+    grads = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    ptrs = _pointers(x, (dout, x, residual, dx, dres), (weight, bias, grads[0], grads[1]))
+    if _BACKWARD is None:
+        _bind()
+    rc = _BACKWARD(*ptrs[:3], ptrs[5], ptrs[6], ptrs[3], ptrs[4], part.data_ptr(), ptrs[7],
+                   ptrs[8], PARTIAL_BLOCKS, rows, c, code, EPILOGUES[epilogue],
+                   torch._C._cuda_getCurrentRawStream(index))
+    _check_rc(rc, "layer_norm backward")
+    layer_norm_backward.launches += 1
     return dx, grads[0], grads[1], dres
