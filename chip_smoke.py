@@ -76,12 +76,18 @@ ends the run with a non-zero exit.
       ``search_batch`` with the bf16 net at config-5 width (board 12, batch
       512, 64 simulations) under both backups and at board 24 (batch 256,
       200 simulations, the walk) runs the kernel and its plain version on
-      copies of the same inputs, bit-equal (floats by bit pattern), and
-      in the first of them every S2a call too, within ``S2_TOL``; then the
-      main path, config-5 searches under both backups, with the three
-      kernels' launches counted; each kernel's time (launches back to back)
-      and its plain version's on simulation 32's inputs, beside its bound
-      (the bytes this call's walks need); then ``search_batch`` with the
+      copies of the same inputs (S1b from the root, the PUCT entry),
+      bit-equal (floats by bit pattern), and in the first of them every S2a
+      call too, within ``S2_TOL``; then the main path, config-5 searches
+      under both backups, with the three kernels' launches counted; S1b
+      and S1c again on simulation 32's trees padded with unlinked slots
+      until one env needs more than 48 KB of shared memory
+      (``S1_WIDE_SLOTS``), bit-equal; each kernel's time (launches back to
+      back, and the device's time behind a spin kernel) and its plain
+      version's on simulation 32's inputs, beside its bound (the bytes this
+      call's walks need), the deepest walk of those inputs, and an empty
+      kernel of the walks' launch shape timed the same two ways (the launch
+      floor); then ``search_batch`` with the
       table and uniform evaluators of ``tests/test_mcts_exact.py`` over its
       scenarios, both backups, every kernel call held to its plain version
       again: root visits, ``root_q`` (<= 1e-5) and the walks' iteration
@@ -294,6 +300,7 @@ import collections
 import concurrent.futures
 import contextlib
 import copy
+import ctypes
 import functools
 import itertools
 import json
@@ -449,6 +456,11 @@ S1_SOURCES = {"bit_step": "bit_step.cu", "select_walk": "search.cu", "backup_wal
 # every comparison of a search kernel with its plain version in this run:
 # name -> [calls, largest |kernel - plain|, every bit equal]
 S1_ERRS: dict = {}
+# slots at which one env's staged rows need more than 48 KB of shared
+# memory (select_walk 62,512 bytes, backup_walk 56,000): the kernels opt in
+# above 48 KB; the captured trees are padded with unlinked slots to these
+S1_WIDE_SLOTS = {"select_walk": 2500, "backup_walk": 7000}
+S1_WIDE_ENVS = 64
 
 # --- the net's LayerNorm (S2a forward, S2b backward: ops/layer_norm.py) -----
 # kernel against plain version on the card, on the same inputs:
@@ -1529,6 +1541,12 @@ def diff(pairs) -> tuple:
     return err, same
 
 
+def note_s1(name: str, result: tuple) -> None:
+    """Add a comparison (``diff``'s result) of a search kernel to ``S1_ERRS``."""
+    calls, worst, same = S1_ERRS.get(name, (0, 0.0, True))
+    S1_ERRS[name] = (calls + 1, max(worst, result[0]), same and result[1])
+
+
 @contextlib.contextmanager
 def held_to_plain(capture: dict | None = None):
     """For the block, ``models/mcts.py``'s three kernel wrappers and
@@ -1542,8 +1560,7 @@ def held_to_plain(capture: dict | None = None):
     seen = dict.fromkeys(real, 0)
 
     def note(name, result, inputs):
-        calls, worst, same = S1_ERRS.get(name, (0, 0.0, True))
-        S1_ERRS[name] = (calls + 1, max(worst, result[0]), same and result[1])
+        note_s1(name, result)
         if capture is not None and name not in capture and seen[name] == S1_TIMED_CALL:
             capture[name] = inputs
         seen[name] += 1
@@ -1552,7 +1569,9 @@ def held_to_plain(capture: dict | None = None):
         return mcts.Tree(*(x.clone() for x in tree))
 
     def select(tree, action, kid, kid_term, c_puct, iters=None):
-        inputs = (clone(tree), action.clone(), kid.clone(), kid_term.clone(), c_puct)
+        # a None entry (all three) is the PUCT search's: from the root
+        entry = tuple(None if x is None else x.clone() for x in (action, kid, kid_term))
+        inputs = (clone(tree), *entry, c_puct)
         ref_iters = None if iters is None else iters.clone()
         want = twalk.select_walk_reference(tree, action, kid, kid_term, c_puct, ref_iters)
         got = real["select_walk"](tree, action, kid, kid_term, c_puct, iters)
@@ -1627,13 +1646,14 @@ def s1_bounds(captured: dict, card: str) -> dict:
     b, nodes = tree.visit.shape
     a_dim = tree.uprior.shape[-1]
     leaf, _, _ = twalk.select_walk_reference(tree, a0, k0, kt0, c_puct)
-    # a descent reads the node's visit and prior row, every slot's link and
+    # a level reads the node's visit and prior row, every slot's link and
     # each linked slot's parent, each child's visit, terminal, value and edge
-    # prior, the chosen child's action; the walk visits the path below the
-    # root (amask tree)
+    # prior, the chosen child's action; the walk scores the path's nodes
+    # (amask tree), the root too when it starts there (a None entry)
     env = torch.arange(b, device=leaf.device)
     path = tree.amask[env, leaf].clone()
-    path[:, 0] = False
+    if a0 is not None:
+        path[:, 0] = False
     kids = torch.zeros((b, nodes + 1), dtype=torch.int64, device=leaf.device).scatter_add_(
         1, torch.where(tree.linked, tree.parent, nodes).clamp_min(0),
         torch.ones((b, nodes), dtype=torch.int64, device=leaf.device))[:, :nodes]
@@ -1641,8 +1661,8 @@ def s1_bounds(captured: dict, card: str) -> dict:
     descents = int(env_descents.sum())
     parents_read = int((env_descents * tree.linked.sum(1)).sum())
     children = int((kids * path).sum())
-    nbytes = (17 * b + 24 * b + descents * (4 + 4 * a_dim + nodes + 9) + 8 * parents_read
-              + 13 * children)
+    nbytes = ((0 if a0 is None else 17 * b) + 24 * b + descents * (4 + 4 * a_dim + nodes + 9)
+              + 8 * parents_read + 13 * children)
     flops = descents * 3 * a_dim + 8 * children
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     out["select_walk"] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
@@ -1656,6 +1676,46 @@ def s1_bounds(captured: dict, card: str) -> dict:
     nbytes = steps * (8 + 8 + 8) + 12 * node.shape[0]
     out["backup_walk"] = (nbytes / HBM_BYTES_PER_S * 1e3, "bytes")
     return out
+
+
+def padded(tree, nodes: int, envs: int):
+    """The first ``envs`` trees of ``tree`` with unlinked slots appended up
+    to ``nodes`` (the walks' fields only)."""
+    fill = {"visit": 0, "value_sum": 0.0, "uprior": -1.0, "parent": -1, "pa": 0,
+            "e_prior": 0.0, "terminal": False, "tval": 0.0, "linked": False}
+    out = {}
+    for name, value in fill.items():
+        x = getattr(tree, name)[:envs]
+        pad = torch.full((envs, nodes - x.shape[1], *x.shape[2:]), value, dtype=x.dtype,
+                         device=x.device)
+        out[name] = torch.cat([x, pad], 1)
+    return tree._replace(**out)
+
+
+def wide_tree_path(captured: dict) -> None:
+    """S1b and S1c where one env's rows need more than 48 KB of shared
+    memory, so that the kernels opt in above it: the captured calls' trees
+    padded with unlinked slots (``S1_WIDE_SLOTS``), kernel against plain
+    version, bit for bit."""
+    tree, _, _, _, c_puct = captured["select_walk"]
+    wide = padded(tree, S1_WIDE_SLOTS["select_walk"], S1_WIDE_ENVS)
+    iters, ref_iters = (torch.zeros((), dtype=torch.int32, device=tree.visit.device)
+                        for _ in range(2))
+    got = twalk.select_walk(wide, None, None, None, c_puct, iters)
+    want = twalk.select_walk_reference(wide, None, None, None, c_puct, ref_iters)
+    note_s1("select_walk", diff([*zip(got, want), (iters, ref_iters)]))
+
+    btree, node, value = captured["backup_walk"]
+    wide = padded(btree, S1_WIDE_SLOTS["backup_walk"], S1_WIDE_ENVS)
+    ref = wide._replace(visit=wide.visit.clone(), value_sum=wide.value_sum.clone())
+    iters, ref_iters = (torch.zeros((), dtype=torch.int32, device=node.device) for _ in range(2))
+    twalk.backup_walk(wide, node[:S1_WIDE_ENVS], value[:S1_WIDE_ENVS], iters)
+    twalk.backup_walk_reference(ref, node[:S1_WIDE_ENVS], value[:S1_WIDE_ENVS], ref_iters)
+    note_s1("backup_walk", diff([(wide.visit, ref.visit), (wide.value_sum, ref.value_sum),
+                                 (iters, ref_iters)]))
+    report_s1_equal(f"one env above 48 KB of shared memory ({S1_WIDE_ENVS} envs: select_walk "
+                    f"at {S1_WIDE_SLOTS['select_walk']} slots, backup_walk at "
+                    f"{S1_WIDE_SLOTS['backup_walk']})")
 
 
 def search_kernels_path(dev, card: str) -> list:
@@ -1692,6 +1752,7 @@ def search_kernels_path(dev, card: str) -> list:
     torch.cuda.synchronize()
     counts = launched_only(f"the config-5 searches (n={n} batch={b} sims={sims}, amask and walk)",
                            required=SEARCH_KERNELS)
+    wide_tree_path(captured)
 
     bounds = s1_bounds(captured, card)
     src, slot, action, dst_slot, bn = captured["bit_step"]
@@ -1709,18 +1770,45 @@ def search_kernels_path(dev, card: str) -> list:
                         lambda: twalk.backup_walk_reference(ref_tree, node, value)),
     }
     letter = {"bit_step": "S1a", "select_walk": "S1b", "backup_walk": "S1c"}
+    # the deepest walk of the timed calls: descents below the root entry, and
+    # the longest backup path
+    sel_iters = torch.zeros((), dtype=torch.int32, device=dev)
+    twalk.select_walk_reference(tree, a0, k0, kt0, c_puct, sel_iters)
+    bk_iters = torch.zeros((), dtype=torch.int32, device=dev)
+    twalk.backup_walk_reference(mcts.Tree(*(x.clone() for x in btree)), node, value, bk_iters)
+    walks = {"select_walk": f"deepest walk {int(sel_iters) - 1} descents below the root "
+                            f"entry ({'from the root' if a0 is None else 'a forced entry'})",
+             "backup_walk": f"longest walk {int(bk_iters)} nodes"}
+    # the launch floor: an empty kernel of the walks' launch shape (4 envs a
+    # block at these slots), enqueued by a bare ctypes call
+    empty = _cuda.load("search").twixt_search_empty
+    empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    shape = (-(-b // 4), 128)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def floor():
+        return empty(*shape, stream)
+
+    floor()
+    floor_ms = statistics.median(back_to_back_ms(floor, S1_REPS))
+    floor_dev = device_ms(floor, S1_REPS)
+    print(f"[S1 floor] empty kernel <<<{shape[0]}, {shape[1]}>>>: {floor_ms} ms a launch "
+          f"({S1_REPS} back to back), device {floor_dev} ms a launch (behind a spin kernel) "
+          f"[{card}]")
     reports = []
     for name, (kernel, plain) in runs.items():
         kernel()  # warm-up
         ms = statistics.median(back_to_back_ms(kernel, S1_REPS))
+        dev_ms = device_ms(kernel, S1_REPS)
         plain()
         plain_ms = statistics.median(timed_ms(plain, S1_PLAIN_REPS))
         bound_ms, by = bounds[name]
         calls, err, _ = S1_ERRS[name]
         print(f"[S1 rate] {letter[name]} {name} on simulation {S1_TIMED_CALL}'s inputs of the "
               f"config-5 search (n={n} batch={b}): kernel {ms} ms a launch ({S1_REPS} back to "
-              f"back), plain {plain_ms} ms; bound {bound_ms} ms ({by}); launches on the main "
-              f"path {counts[letter[name]]} [{card}]")
+              f"back), device {dev_ms} ms a launch (behind a spin kernel), plain {plain_ms} ms; "
+              f"bound {bound_ms} ms ({by}); launches on the main path {counts[letter[name]]}"
+              f"{'; ' + walks[name] if name in walks else ''} [{card}]")
         reports.append({"name": name, "route": "cuda", "source": CSRC + S1_SOURCES[name],
                         "replaces": S1_REPLACES[name], "launches": counts[letter[name]],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,

@@ -7,7 +7,8 @@ Inputs are the calls a port search makes: ``search_batch`` runs on numpy-
 seeded roots (``bit_random_rollout`` from reset, part-way into games, so
 that terminal children and revisits occur) with the table or uniform
 evaluator of ``tests/test_mcts_exact.py``, and every call of the three
-wrappers is recorded with a copy of its inputs.  Synthetic calls on the
+wrappers is recorded with a copy of its inputs (the selection from the
+root: the PUCT search's entry is the walk's own).  Synthetic calls on the
 recorded trees add what a search reaches rarely: revisits (an action whose
 child exists), Gumbel-style forced root entries, values of +-0.0.
 
@@ -16,15 +17,20 @@ child exists), Gumbel-style forced root entries, values of +-0.0.
     ``bit_legal_mask_flat`` + ``_set_node_state``
     (``twixt_for_open_spiel_tpu/models/mcts.py:191, 228``) in both of
     JAX's gather forms;
-  * ``select_walk_reference`` against JAX ``_best_edge`` iterated in the
-    ``while_loop`` of ``mcts.py:352-368``, with its iteration count;
+  * ``select_walk_reference``, from a forced entry or from the root,
+    against JAX ``_best_edge`` (at node 0 for the root entry, ``:672``)
+    iterated in the ``while_loop`` of ``mcts.py:352-368``, with its
+    iteration count;
   * ``backup_walk_reference`` against the ``while_loop`` of
     ``mcts.py:496-511`` (the sign of a zero sum included), with its count.
 
 The CUDA kernels run only on the card (``chip_smoke.py`` holds each to its
 plain version there); the models here pin, per env, the kernels'
-algorithms: the warp's strided lanes and its shuffle argmax (the first
-maximum, NaN above all), the backup's trailing +0.0, the slot indexing.
+algorithms: S1b's staged slot rows, its child-side pass over them and the
+prior row's pass, each with the warp's strided lanes and its shuffle
+argmax (the first maximum, NaN above all), and the from-root entry; S1c's
+path through the staged parent row, its lane-parallel signed adds, and
+the last block's trailing +0.0 and count; the slot indexing.
 """
 
 import functools
@@ -72,7 +78,8 @@ def recorded(name: str) -> dict:
     real = {"select": tmcts.select_walk, "step": tmcts.bit_step, "backup": tmcts.backup_walk}
 
     def select(tree, action, kid, kid_term, c_puct, iters=None):
-        calls["select"].append((clone_tree(tree), action.clone(), kid.clone(), kid_term.clone()))
+        entry = tuple(None if x is None else x.clone() for x in (action, kid, kid_term))
+        calls["select"].append((clone_tree(tree), *entry))
         return real["select"](tree, action, kid, kid_term, c_puct, iters)
 
     def step(src, src_slot, action, dst, dst_slot, board_size, **kw):
@@ -133,7 +140,12 @@ def jax_expand(planes, compid, scalars, node_action, dst_slot, n, dense):
 
 @functools.partial(jax.jit, static_argnums=4)
 def jax_select(jt, a0, k0, kt0, c_puct):
-    """JAX's selection walk (mcts.py:352-368)."""
+    """JAX's selection walk (mcts.py:352-368), from the given entry or, with
+    ``a0`` None, from the PUCT root entry: ``_best_edge`` at node 0
+    (mcts.py:672)."""
+    if a0 is None:
+        a0, k0, kt0 = jmcts._best_edge(jt, jnp.zeros(jt.visit.shape[:1], jnp.int32), c_puct)
+
     def sel_cond(carry):
         return jnp.any(carry[4])
 
@@ -177,6 +189,13 @@ def jax_backup(visit, vsum, parent, node_id, value):
 
 def i32(x):
     return jnp.asarray(np.asarray(x).astype(np.int32))
+
+
+def jax_entry(a0, k0, kt0) -> tuple:
+    """A root entry for :func:`jax_select` (None stays None: from the root)."""
+    if a0 is None:
+        return None, None, None
+    return i32(a0), i32(k0), jnp.asarray(kt0.numpy())
 
 
 def same_bits(port: torch.Tensor, want) -> bool:
@@ -313,33 +332,6 @@ def test_step_state_slot_packing(n, shape):
         assert torch.equal(got.reshape(leaf.shape), leaf)
 
 
-FINISH_CASES = {
-    # lengths, root sums before, iters before -> root sums after, iters after
-    "equal-lengths": ([2, 2], [-0.0, -0.0], 0, [-0.0, -0.0], 2),
-    "shorter-walks": ([1, 3, 3], [-0.0, -0.0, 1.5], 0, [0.0, -0.0, 1.5], 3),
-    "nonzero-roots": ([1, 2, 4], [-2.5, 0.25, -0.0], 1, [-2.5, 0.25, -0.0], 4),
-    "count-kept": ([1, 2], [-0.0, 3.0], 5, [0.0, 3.0], 5),
-}
-
-
-@pytest.mark.parametrize("name", list(FINISH_CASES))
-def test_finish_backup(name):
-    """The backup wrapper's fix-up after the kernel's walks: +0.0 at slot 0
-    of the envs whose walk is shorter than the longest (the plain loop's
-    trailing adds), slot 0 of the others and every other slot untouched,
-    the count raised to the longest walk."""
-    lengths, roots, iters0, want_roots, want_iters = FINISH_CASES[name]
-    b = len(lengths)
-    value_sum = torch.full((b, 3), -0.0)
-    value_sum[:, 0] = torch.tensor(roots)
-    tree = tmcts.Tree(*([None] * len(tmcts.Tree._fields)))._replace(value_sum=value_sum)
-    iters = torch.tensor(iters0, dtype=torch.int32)
-    twalk._finish_backup(tree, torch.tensor(lengths, dtype=torch.int32), iters)
-    assert same_bits(value_sum[:, 0], np.array(want_roots, np.float32))
-    assert same_bits(value_sum[:, 1:], np.full((b, 2), -0.0, np.float32))
-    assert int(iters) == want_iters
-
-
 def test_bit_step_slot_layout_model():
     """The kernel's flat indexing: word j of env b's slot s at
     ``(s*16P + j)*B + b`` (compid at ``(s*n*n + c)*B + b``), the stepped
@@ -377,6 +369,8 @@ def test_bit_step_slot_layout_model():
 
 
 def select_calls(name, seed=1):
+    """The search's selection calls (from the root), then forced root
+    entries on the trees of its last four simulations."""
     rec = recorded(name)
     calls = list(rec["select"])
     rng = np.random.default_rng(seed)
@@ -391,10 +385,46 @@ def test_select_walk_reference_matches_jax(name):
     for tree, a0, k0, kt0 in select_calls(name):
         iters = torch.zeros((), dtype=torch.int32)
         node, action, kid = twalk.select_walk_reference(tree, a0, k0, kt0, C_PUCT, iters)
-        w_node, w_action, w_kid, w_ct = jax_select(jax_tree(tree), i32(a0), i32(k0),
-                                                   jnp.asarray(kt0.numpy()), C_PUCT)
+        w_node, w_action, w_kid, w_ct = jax_select(jax_tree(tree), *jax_entry(a0, k0, kt0),
+                                                   C_PUCT)
         assert same_bits(node, w_node) and same_bits(action, w_action)
         assert same_bits(kid, w_kid)
+        assert int(iters) == int(w_ct)
+        descended += int(iters) > 1
+    assert descended > 0
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_select_walk_from_root_is_puct_root_entry(name):
+    """The from-root mode's plain path is the old PUCT entry (``best_edge``
+    at slot 0 of every env) followed by the walk from that entry, with the
+    same count; and it is what the search recorded (every PUCT call)."""
+    calls = recorded(name)["select"]
+    assert calls and all(a0 is None for _, a0, _, _ in calls)
+    for tree, *_ in calls:
+        b = tree.visit.shape[0]
+        entry = twalk.best_edge(tree, torch.arange(b), torch.zeros(b, dtype=torch.int64), C_PUCT)
+        want_iters = torch.zeros((), dtype=torch.int32)
+        want = twalk.select_walk_reference(tree, *entry, C_PUCT, want_iters)
+        iters = torch.zeros((), dtype=torch.int32)
+        got = twalk.select_walk_reference(tree, None, None, None, C_PUCT, iters)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert int(iters) == int(want_iters)
+        assert all(torch.equal(g, w) for g, w in zip(twalk.root_entry(tree, C_PUCT), entry))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_select_walk_from_root_matches_jax(name):
+    """From the root, on every recorded tree: JAX's ``_best_edge`` at node 0
+    iterated in the ``while_loop``, with its count."""
+    descended = 0
+    for tree, *_ in select_calls(name):
+        iters = torch.zeros((), dtype=torch.int32)
+        got = twalk.select_walk(tree, None, None, None, C_PUCT, iters)
+        *want, w_ct = jax_select(jax_tree(tree), None, None, None, C_PUCT)
+        for g, w in zip(got, want):
+            assert same_bits(g, w)
         assert int(iters) == int(w_ct)
         descended += int(iters) > 1
     assert descended > 0
@@ -440,35 +470,56 @@ def warp_argmax(scores) -> tuple:
     return lanes[0]
 
 
+def stage_slots(t: dict, b: int, c) -> dict:
+    """select_walk_kernel's staging of env ``b``'s slot rows into shared
+    memory: the terms of a child's score that do not depend on its parent,
+    in float32 in the kernel's operation order, and each slot's key (its
+    parent where linked, else -1)."""
+    nodes = len(t["visit"][b])
+    visit = t["visit"][b]
+    parent = t["parent"][b]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        q = np.where(t["terminal"][b], t["tval"][b],
+                     -t["value_sum"][b] / np.maximum(visit, 1).astype(np.float32))
+    key = np.where(t["linked"][b] & (parent >= 0) & (parent < nodes), parent, -1)
+    return {"q": q.astype(np.float32), "cpe": (c * t["e_prior"][b]).astype(np.float32),
+            "den": (np.float32(1.0) + visit.astype(np.float32)).astype(np.float32),
+            "key": key.astype(np.int32), "visit": visit.astype(np.int32),
+            "pa": t["pa"][b].astype(np.int32), "term": t["terminal"][b].copy()}
+
+
+def model_edge(s: dict, up, node: int, c) -> tuple:
+    """A level of the kernel's walk at ``node``: the child-side pass over the
+    staged slots, the prior row's pass, the tie between them."""
+    sq = np.sqrt(np.float32(max(int(s["visit"][node]), 1)))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        child = s["q"] + (s["cpe"] * sq) / s["den"]
+        prior = np.where(up >= 0, (c * up) * sq, np.float32(-np.inf))
+    bc, c_star = warp_argmax(np.where(s["key"] == node, child, np.float32(-np.inf)))
+    bu, bu_a = warp_argmax(prior.astype(np.float32))
+    bc_a = int(s["pa"][c_star])
+    wins = bc > bu or (bc == bu and bc_a < bu_a)
+    return (bc_a, c_star, bool(s["term"][c_star])) if wins else (bu_a, -1, False)
+
+
 def model_select_walk(tree, a0, k0, kt0, c_puct):
-    """csrc/search.cu's select_walk_kernel, one env at a time, in float32
-    with the kernel's operation order."""
+    """csrc/search.cu's select_walk_kernel, one env (warp) at a time: the
+    staged rows, the root entry from ``a0, k0, kt0`` or, with ``a0`` None,
+    the best edge at slot 0, then a level a descent."""
     c = np.float32(c_puct)
     t = {k: v.numpy() for k, v in tree._asdict().items()}
     out, longest = [], 0
-    for b in range(a0.shape[0]):
-        node, action, kid, kt, descents = 0, int(a0[b]), int(k0[b]), bool(kt0[b]), 0
-        while kid >= 0 and not kt and descents < len(t["visit"][b]):
+    for b in range(t["visit"].shape[0]):
+        nodes = t["visit"].shape[1]
+        s = stage_slots(t, b, c)
+        if a0 is None:
+            action, kid, kt = model_edge(s, t["uprior"][b, 0], 0, c)
+        else:
+            action, kid, kt = int(a0[b]), int(k0[b]), bool(kt0[b])
+        node, descents = 0, 0
+        while 0 <= kid < nodes and not kt and descents < nodes:
             node = kid
-            sq = np.sqrt(np.float32(max(int(t["visit"][b, node]), 1)))
-            up = t["uprior"][b, node]
-            bu, bu_a = warp_argmax([c * p * sq if p >= 0 else np.float32(-np.inf) for p in up])
-            scores = []
-            for s in range(len(t["visit"][b])):
-                if t["linked"][b, s] and t["parent"][b, s] == node:
-                    v = int(t["visit"][b, s])
-                    q = t["tval"][b, s] if t["terminal"][b, s] else \
-                        -t["value_sum"][b, s] / np.float32(max(v, 1))
-                    u = c * t["e_prior"][b, s] * sq / (np.float32(1.0) + np.float32(v))
-                    scores.append(np.float32(q + u))
-                else:
-                    scores.append(np.float32(-np.inf))
-            bc, c_star = warp_argmax(scores)
-            bc_a = int(t["pa"][b, c_star])
-            wins = bc > bu or (bc == bu and bc_a < bu_a)
-            action = bc_a if wins else bu_a
-            kid = c_star if wins else -1
-            kt = wins and bool(t["terminal"][b, c_star])
+            action, kid, kt = model_edge(s, t["uprior"][b, node], node, c)
             descents += 1
         out.append((node, action, kid))
         longest = max(longest, descents + 1)
@@ -487,14 +538,14 @@ def test_select_walk_kernel_model(name):
         assert longest == int(iters)
 
 
-def test_select_walk_kernel_model_ties_and_nan():
-    """Equal scores (within a lane's two actions too), an all -inf prior
-    row and NaN values: the model's shuffle argmax makes the reference's
-    (torch's) choices."""
+def tie_tree():
+    """A recorded tree made of ties: equal unexpanded edges (within a
+    lane's two actions too), equal children, an env with no unexpanded edge
+    left, NaN child values; and root entries into an expanded, non-terminal
+    child wherever one exists."""
     tree = clone_tree(recorded("n8-table-walk")["select"][-1][0])  # two actions a lane
     b = tree.visit.shape[0]
     env = torch.arange(b)
-    # root entries into an expanded, non-terminal child wherever one exists
     ok = (tree.root_child >= 0) & ~tree.terminal[env[:, None], tree.root_child.clamp_min(0)]
     a0 = ok.long().argmax(-1)
     k0 = torch.where(ok.any(-1), tree.root_child[env, a0], -1)
@@ -506,9 +557,30 @@ def test_select_walk_kernel_model_ties_and_nan():
     tree.uprior[1].fill_(-1.0)  # env 1: no unexpanded edge left anywhere
     slots = np.random.default_rng(7).integers(1, tree.visit.shape[1], size=4)
     tree.value_sum[3, slots] = float("nan")  # env 3: NaN child values
+    return tree, a0, k0, kt0
+
+
+def test_select_walk_kernel_model_ties_and_nan():
+    """Equal scores (within a lane's two actions too), an all -inf prior
+    row and NaN values: the model's shuffle argmax makes the reference's
+    (torch's) choices."""
+    tree, a0, k0, kt0 = tie_tree()
     iters = torch.zeros((), dtype=torch.int32)
     want = twalk.select_walk_reference(tree, a0, k0, kt0, C_PUCT, iters)
     *got, longest = model_select_walk(tree, a0, k0, kt0, C_PUCT)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert longest == int(iters) > 1
+
+
+def test_select_walk_kernel_model_ties_and_nan_from_root():
+    """The same ties from the root entry, with every root child's value NaN
+    in one env and equal in the others."""
+    tree, *_ = tie_tree()
+    tree.value_sum[5] = torch.where(tree.parent[5] == 0, float("nan"), tree.value_sum[5])
+    iters = torch.zeros((), dtype=torch.int32)
+    want = twalk.select_walk_reference(tree, None, None, None, C_PUCT, iters)
+    *got, longest = model_select_walk(tree, None, None, None, C_PUCT)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert longest == int(iters) > 1
@@ -546,51 +618,136 @@ def test_backup_walk_reference_matches_jax(name):
         assert int(iters) == int(want[2])
 
 
-def model_backup_walk(visit, vsum, parent, node_id, value) -> np.ndarray:
-    """csrc/search.cu's backup_walk_kernel: a thread an env walks its chain
-    and writes its length."""
-    lengths = []
-    for b in range(node_id.shape[0]):
-        node, v, length = int(node_id[b]), np.float32(value[b]), 0
-        while node >= 0 and length < visit.shape[1]:
-            visit[b, node] += 1
-            vsum[b, node] = np.float32(vsum[b, node] + v)
-            node, v, length = int(parent[b, node]), -v, length + 1
-        lengths.append(length)
-    return np.array(lengths, np.int32)
+def model_fix_up(vsum, scratch, iters: int) -> int:
+    """The last block's work: +0.0 at slot 0 of every env whose walk is
+    shorter than the longest (at least 1, as the plain loop runs once),
+    the count raised to it, the scratch's counters zeroed.  Returns the
+    count."""
+    longest = max(1, int(scratch[0]))
+    for e in range(vsum.shape[0]):
+        if scratch[2 + e] < longest:
+            vsum[e, 0] = np.float32(vsum[e, 0] + np.float32(0.0))
+    scratch[:2] = 0
+    return max(iters, longest)
+
+
+def model_backup_walk(visit, vsum, parent, node_id, value, scratch, iters: int = 0,
+                      envs_per_block: int = 4, order=None) -> int:
+    """csrc/search.cu's backup_walk_kernel, its blocks run in ``order``
+    (default: in turn): per env (warp) the parent row staged, the path
+    followed from the leaf in it, lane i % 32 adding to the path's node i
+    (+v at even i, -v at odd); each env's length and the device-wide
+    maximum in ``scratch``; then each block's ticket, and the last block's
+    fix-up (:func:`model_fix_up`).  Returns the count."""
+    batch, nodes = visit.shape
+    blocks = -(-batch // envs_per_block)
+    for blk in range(blocks) if order is None else order:
+        for env in range(blk * envs_per_block, min(batch, (blk + 1) * envs_per_block)):
+            par = np.where((parent[env] >= 0) & (parent[env] < nodes), parent[env], -1)
+            path, node = [], int(node_id[env]) if 0 <= node_id[env] < nodes else -1
+            while node >= 0 and len(path) < nodes:
+                path.append(node)
+                node = int(par[node])
+            v = np.float32(value[env])
+            for i, nd in enumerate(path):
+                visit[env, nd] += 1
+                vsum[env, nd] = np.float32(vsum[env, nd] + (-v if i & 1 else v))
+            scratch[2 + env] = len(path)
+            scratch[0] = max(scratch[0], len(path))
+        ticket = scratch[1]
+        scratch[1] += 1
+        if ticket == blocks - 1:
+            iters = model_fix_up(vsum, scratch, iters)
+    return iters
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_backup_walk_kernel_model(name):
-    """The kernel's walks, then the wrapper's own fix-up (``_finish_backup``,
-    the trailing +0.0 and the count), equal the plain loop."""
+    """The kernel's walks, then its last block's fix-up (the trailing +0.0
+    and the count), in any order of blocks, equal the plain loop; the
+    scratch's counters end at 0."""
     zeros = 0
+    rng = np.random.default_rng(5)
     for tree, node, value in backup_calls(name):
         visit, vsum = tree.visit.numpy().copy(), tree.value_sum.numpy().copy()
-        lengths = model_backup_walk(visit, vsum, tree.parent.numpy(), node.numpy(),
-                                    value.numpy())
-        got = tree._replace(visit=torch.from_numpy(visit), value_sum=torch.from_numpy(vsum))
-        got_iters = torch.zeros((), dtype=torch.int32)
-        twalk._finish_backup(got, torch.from_numpy(lengths), got_iters)
+        b = visit.shape[0]
+        scratch = np.zeros(2 + b, np.int64)
+        got_iters = model_backup_walk(visit, vsum, tree.parent.numpy(), node.numpy(),
+                                      value.numpy(), scratch, order=rng.permutation(-(-b // 4)))
         tree = clone_tree(tree)
         iters = torch.zeros((), dtype=torch.int32)
         twalk.backup_walk_reference(tree, node, value, iters)
         assert np.array_equal(visit, tree.visit.numpy())
-        assert same_bits(got.value_sum, tree.value_sum.numpy())
-        assert int(got_iters) == int(iters)
+        assert same_bits(torch.from_numpy(vsum), tree.value_sum.numpy())
+        assert got_iters == int(iters)
+        assert not scratch[:2].any()
         zeros += int((tree.value_sum[:, 0] == 0).sum())
     assert zeros > 0  # zero sums at the roots, whose sign the trailing +0.0 decides
+
+
+FIX_UP_CASES = {
+    # walk lengths, root sums before, count before -> root sums after, count after
+    "equal-lengths": ([2, 2], [-0.0, -0.0], 0, [-0.0, -0.0], 2),
+    "shorter-walks": ([1, 3, 3], [-0.0, -0.0, 1.5], 0, [0.0, -0.0, 1.5], 3),
+    "nonzero-roots": ([1, 2, 4], [-2.5, 0.25, -0.0], 1, [-2.5, 0.25, -0.0], 4),
+    "count-kept": ([1, 2], [-0.0, 3.0], 5, [0.0, 3.0], 5),
+    "no-walk": ([0, 0], [-0.0, 2.0], 0, [0.0, 2.0], 1),
+    "none-and-one": ([0, 1, 1], [-0.0, -0.0, 0.5], 0, [0.0, -0.0, 0.5], 1),
+    "one-env": ([5], [-0.0], 2, [-0.0], 5),
+    "two-blocks": ([1, 1, 1, 1, 2], [-0.0] * 5, 0, [0.0, 0.0, 0.0, 0.0, -0.0], 2),
+}
+
+
+@pytest.mark.parametrize("name", list(FIX_UP_CASES))
+def test_backup_fix_up_model(name):
+    """The kernel's fix-up after the walks (the last block's): +0.0 at slot
+    0 of the envs whose walk is shorter than the longest (the plain loop's
+    trailing adds; every env when no walk ran, since the loop runs once),
+    slot 0 of the others and every other slot untouched, the count raised
+    to the longest walk.  Then the whole kernel model against the plain
+    loop on chain trees of those lengths (a leaf at depth length - 1, none
+    at length 0), values +-0.0."""
+    lengths, roots, iters0, want_roots, want_iters = FIX_UP_CASES[name]
+    b = len(lengths)
+    vsum = np.full((b, 3), -0.0, np.float32)
+    vsum[:, 0] = roots
+    scratch = np.array([max(lengths), 7, *lengths], np.int64)
+    assert model_fix_up(vsum, scratch, iters0) == want_iters
+    assert same_bits(torch.from_numpy(vsum[:, 0]), np.array(want_roots, np.float32))
+    assert same_bits(torch.from_numpy(vsum[:, 1:]), np.full((b, 2), -0.0, np.float32))
+    assert not scratch[:2].any()
+
+    nodes = max(lengths) + 1
+    parent = torch.arange(-1, nodes - 1, dtype=torch.int64).expand(b, nodes).contiguous()
+    tree = tmcts.Tree(*([None] * len(tmcts.Tree._fields)))._replace(
+        visit=torch.ones((b, nodes), dtype=torch.int32), parent=parent,
+        value_sum=torch.full((b, nodes), -0.0))
+    tree.value_sum[:, 0] = torch.tensor(roots)
+    node = torch.tensor(lengths, dtype=torch.int64) - 1
+    value = torch.tensor([0.0, -0.0] * b)[:b]
+    visit, got = tree.visit.numpy().copy(), tree.value_sum.numpy().copy()
+    scratch = np.zeros(2 + b, np.int64)
+    got_iters = model_backup_walk(visit, got, parent.numpy(), node.numpy(), value.numpy(),
+                                  scratch, iters0, envs_per_block=2)
+    iters = torch.tensor(iters0, dtype=torch.int32)
+    twalk.backup_walk_reference(tree, node, value, iters)
+    assert np.array_equal(visit, tree.visit.numpy())
+    assert same_bits(torch.from_numpy(got), tree.value_sum.numpy())
+    assert got_iters == int(iters) == want_iters
 
 
 # --- the wrappers: dispatch, checks, the build ------------------------------
 
 
 def test_no_fallback_off_cpu():
-    tree, a0, k0, kt0 = recorded("n5-table-walk")["select"][0]
+    tree, *_ = recorded("n5-table-walk")["select"][0]
+    a0, k0, kt0 = forced_root_entries(tree, np.random.default_rng(0))
     src, slot, action, dst_slot = recorded("n5-table-walk")["step"][0]
     meta = tmcts.Tree(*(x.to("meta") for x in tree))
     with pytest.raises(ValueError, match="no kernel"):
         twalk.select_walk(meta, a0.to("meta"), k0.to("meta"), kt0.to("meta"), C_PUCT)
+    with pytest.raises(ValueError, match="no kernel"):
+        twalk.select_walk(meta, None, None, None, C_PUCT)
     with pytest.raises(ValueError, match="no kernel"):
         twalk.backup_walk(meta, k0.to("meta"), torch.zeros(k0.shape, device="meta"))
     meta_bufs = tuple(x.to("meta") for x in src)
@@ -603,7 +760,8 @@ def test_no_fallback_off_cpu():
 
 
 def test_wrapper_checks():
-    tree, a0, k0, kt0 = recorded("n5-table-walk")["select"][0]
+    tree, *_ = recorded("n5-table-walk")["select"][0]
+    _, k0, _ = forced_root_entries(tree, np.random.default_rng(0))
     src, slot, action, dst_slot = recorded("n5-table-walk")["step"][0]
     b, nodes = tree.visit.shape
     twalk._check_tree(tree, tree.visit.device, ("uprior", *twalk._SLOT_FIELDS))
@@ -617,6 +775,15 @@ def test_wrapper_checks():
         twalk._env_vector(k0.int(), b, torch.int64, k0.device, "kid")
     with pytest.raises(ValueError, match="iters"):
         twalk._iters_ptr(torch.zeros(2, dtype=torch.int32), k0.device)
+    # one env's staged rows must fit a block's shared memory: about 9,300
+    # slots for the selection, 29,056 for the backup
+    assert twalk.env_smem_bytes("select", 65) == 24 * 65 + 80
+    assert twalk.env_smem_bytes("select", 9297) <= twalk.SMEM_LIMIT
+    with pytest.raises(ValueError, match="select_walk: 9298 slots need .* shared memory"):
+        twalk.env_smem_bytes("select", 9298)
+    assert twalk.env_smem_bytes("backup", 29_056) == twalk.SMEM_LIMIT
+    with pytest.raises(ValueError, match="backup_walk: 29057 slots"):
+        twalk.env_smem_bytes("backup", 29_057)
     tstep._check_bufs(src, 5, b, src[0].device, "source")
     with pytest.raises(ValueError, match="source compid"):
         tstep._check_bufs((src[0], src[1].int(), src[2]), 5, b, src[0].device, "source")
@@ -636,6 +803,10 @@ def test_kernel_sources_and_flags():
     search = (_cuda.CSRC / "search.cu").read_text()
     for op in ("__fmul_rn", "__fdiv_rn", "__fadd_rn", "__fsqrt_rn"):
         assert op in search
+    # the wrapper's shared-memory check mirrors the kernels' layout
+    assert f"constexpr int SMEM_LIMIT = {twalk.SMEM_LIMIT};" in search
+    assert "return 24 * nodes + (nodes + 15) / 16 * 16;" in search
+    assert "int backup_env_bytes(int nodes) { return 8 * nodes; }" in search
     for name in ("bit_step", "search", "fused_bit_rollout"):
         text = (_cuda.CSRC / f"{name}.cu").read_text()
         assert "twixt_cuda_error_string" in text

@@ -15,14 +15,15 @@ and its three tie rules, so with deterministic evaluators and no root noise
 the root visit counts equal JAX's integer for integer; Gumbel's candidate
 rankings keep ``jax.lax.top_k``'s order of ties (a stable sort).
 
-Kernels.  Below the root entry a simulation runs the selection walk
-(``ops/search_walk.py::select_walk``, S1b), the expansion
-(``ops/bit_step.py::bit_step``, S1a: the parent slot's step, the child's
-legal mask and its slot write), the evaluator, the tree's writes and the
-backup (the ancestor masks as torch ops, or ``backup_walk``, S1c).  On the
-card each of S1a-S1c is one CUDA launch and a simulation makes no host
-read; on the CPU their plain versions run, whose walks read ``any()`` once
-an iteration, as JAX's ``while_loop``s test it.  ``return_stats`` counts
+Kernels.  A simulation runs the selection walk
+(``ops/search_walk.py::select_walk``, S1b, the PUCT root entry included),
+the expansion (``ops/bit_step.py::bit_step``, S1a: the parent slot's step,
+the child's legal mask and its slot write), the evaluator, the tree's
+writes and the backup (the ancestor masks as torch ops, or
+``backup_walk``, S1c).  On the card each of S1a-S1c is one CUDA launch and
+a simulation makes no host read; on the CPU their plain versions run,
+whose walks read ``any()`` once an iteration, as JAX's ``while_loop``s
+test it.  ``return_stats`` counts
 the walks' lockstep iterations (the deepest env's depth plus one) on the
 device and reads them once, at the end.
 
@@ -58,12 +59,7 @@ from twixt_for_open_spiel_tpu_torch.ops.bitboard import (
     step_bits,
 )
 from twixt_for_open_spiel_tpu_torch.ops.observe import bit_observation_nchw
-from twixt_for_open_spiel_tpu_torch.ops.search_walk import (
-    NO_NODE,
-    backup_walk,
-    best_edge,
-    select_walk,
-)
+from twixt_for_open_spiel_tpu_torch.ops.search_walk import NO_NODE, backup_walk, select_walk
 
 _I32 = torch.int32
 _I64 = torch.int64
@@ -110,13 +106,6 @@ class Tree(NamedTuple):
     planes: torch.Tensor     # int32 [nodes, 16, P, B] packed bitplanes
     compid: torch.Tensor     # int16 [nodes, N, N, B]
     scalars: torch.Tensor    # int32 [nodes, 5, B]
-
-
-def _puct_root(batch: int, c_puct: float, dev):
-    """The PUCT root entry of ``_make_simulate``: the best edge at slot 0."""
-    env = torch.arange(batch, device=dev)
-    node0 = torch.zeros(batch, dtype=_I64, device=dev)
-    return lambda tree, sim: best_edge(tree, env, node0, c_puct)
 
 
 def _init_tree(bs: BitState, batch: int, nodes: int, a_dim: int, root_value,
@@ -175,17 +164,19 @@ def _outcome_value(result: torch.Tensor, player: torch.Tensor) -> torch.Tensor:
 
 def _make_simulate(*, params, generator, evaluator, board_size: int, batch: int,
                    nodes: int, a_dim: int, c_puct: float, use_amask: bool, dev,
-                   root_entry, fresh_base: int = 1, iters=None):
+                   root_entry=None, fresh_base: int = 1, iters=None):
     """One simulation (selection -> expansion -> evaluation -> backup) as
     ``simulate(sim, tree)``; it updates ``tree`` in place.
 
     ``root_entry(tree, sim) -> (action, kid, kid_term)`` chooses the root
-    edge of simulation ``sim``: the PUCT best edge (:func:`search_batch`,
-    :func:`search_batch_reuse`) or a forced candidate
-    (:func:`gumbel_search_batch`); below the root every search shares the
-    lockstep PUCT walk, the expansion and the backup.  Simulation ``sim``
-    expands into slot ``fresh_base + sim`` in every env: 1 for a cold tree,
-    ``reuse_cap`` for a re-rooted one whose survivors hold the slots below.
+    edge of simulation ``sim``, a forced candidate
+    (:func:`gumbel_search_batch`); None takes the PUCT best edge at slot 0
+    (:func:`search_batch`, :func:`search_batch_reuse`), which the selection
+    walk computes itself (S1b's from-root mode).  Below the root every
+    search shares the lockstep PUCT walk, the expansion and the backup.
+    Simulation ``sim`` expands into slot ``fresh_base + sim`` in every env:
+    1 for a cold tree, ``reuse_cap`` for a re-rooted one whose survivors
+    hold the slots below.
     ``iters`` (int32 [2, simulations], zeroed) takes simulation ``sim``'s
     selection and walk-backup iteration counts in column ``sim``.
     """
@@ -198,9 +189,9 @@ def _make_simulate(*, params, generator, evaluator, board_size: int, batch: int,
 
         # --- selection: every env walks down from its root entry until its
         # best edge is unexpanded or leads to a terminal child
-        action, kid, kid_term = root_entry(tree, sim)
+        entry = (None, None, None) if root_entry is None else root_entry(tree, sim)
         leaf_parent, action, existing_kid = select_walk(
-            tree, action, kid, kid_term, c_puct, None if iters is None else iters[0, sim])
+            tree, *entry, c_puct, None if iters is None else iters[0, sim])
         # an existing child here is terminal (selection stops only on a
         # missing or terminal child): no expansion, its exact value is
         # backed up again
@@ -394,8 +385,7 @@ def search_batch(params, bs: BitState, generator, *, evaluator, board_size: int,
     simulate = _make_simulate(
         params=params, generator=generator, evaluator=evaluator,
         board_size=board_size, batch=batch, nodes=nodes, a_dim=a_dim,
-        c_puct=c_puct, use_amask=use_amask, dev=dev,
-        root_entry=_puct_root(batch, c_puct, dev), iters=iters,
+        c_puct=c_puct, use_amask=use_amask, dev=dev, iters=iters,
     )
     for sim in range(num_simulations):
         simulate(sim, tree)
@@ -790,8 +780,7 @@ def search_batch_reuse(params, bs: BitState, generator, tree: Tree, played, was_
     simulate = _make_simulate(
         params=params, generator=generator, evaluator=evaluator,
         board_size=board_size, batch=batch, nodes=nodes, a_dim=a_dim,
-        c_puct=c_puct, use_amask=use_amask, dev=dev,
-        root_entry=_puct_root(batch, c_puct, dev), fresh_base=cap,
+        c_puct=c_puct, use_amask=use_amask, dev=dev, fresh_base=cap,
     )
     for sim in range(num_simulations):
         simulate(sim, tree)

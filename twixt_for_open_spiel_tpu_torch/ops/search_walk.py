@@ -1,13 +1,14 @@
 """The batched search's two walks in CUDA kernels, and their plain versions:
-the lockstep PUCT selection below the root (:func:`select_walk`, S1b) and
-the parent-chain backup (:func:`backup_walk`, S1c), both in
-``csrc/search.cu``.
+the lockstep PUCT selection (:func:`select_walk`, S1b), from a root entry
+or from the root's own best edge, and the parent-chain backup
+(:func:`backup_walk`, S1c), both in ``csrc/search.cu``.
 
 The JAX search runs each walk as a ``lax.while_loop`` inside its jitted
-simulation (``twixt_for_open_spiel_tpu/models/mcts.py:368`` and ``:511``).
-The plain versions here are host loops of torch ops that read the device
-once an iteration (``any()``); the kernels run each walk in one launch and
-read nothing back, so a simulation on the card makes no host read.
+simulation (``twixt_for_open_spiel_tpu/models/mcts.py:368`` and ``:511``),
+its PUCT root entry as ``_best_edge`` at slot 0 (``:672``).  The plain
+versions here are host loops of torch ops that read the device once an
+iteration (``any()``); the kernels run each walk in one launch and read
+nothing back, so a simulation on the card makes no host read.
 
 Both take the search's ``Tree`` (``models/mcts.py``; any object with its
 fields): ``uprior`` f32 [B, nodes, A], ``visit`` int32, ``value_sum`` f32,
@@ -36,6 +37,9 @@ _I64 = torch.int64
 _SLOT_FIELDS = {"visit": _I32, "value_sum": torch.float32, "parent": _I64, "pa": _I64,
                 "e_prior": torch.float32, "terminal": torch.bool, "tval": torch.float32,
                 "linked": torch.bool}
+# a block's most shared memory on Hopper (227 KB): one env's staged rows
+# must fit (csrc/search.cu's SMEM_LIMIT)
+SMEM_LIMIT = 232_448
 
 
 def best_edge(tree, env: torch.Tensor, node: torch.Tensor, c_puct: float):
@@ -80,6 +84,14 @@ def best_edge(tree, env: torch.Tensor, node: torch.Tensor, c_puct: float):
     return action, kid, kid_term
 
 
+def root_entry(tree, c_puct: float):
+    """The PUCT root entry: the best edge at slot 0 of every env."""
+    batch = tree.visit.shape[0]
+    dev = tree.visit.device
+    node0 = torch.zeros(batch, dtype=_I64, device=dev)
+    return best_edge(tree, torch.arange(batch, device=dev), node0, c_puct)
+
+
 def _raise_count(iters, count) -> None:
     if iters is not None:
         iters.copy_(torch.maximum(iters, torch.as_tensor(count, dtype=_I32,
@@ -87,10 +99,13 @@ def _raise_count(iters, count) -> None:
 
 
 def select_walk_reference(tree, action, kid, kid_term, c_puct: float, iters=None):
-    """The plain torch version of :func:`select_walk`: every env walks down in
-    lockstep until its best edge is unexpanded or leads to a terminal child,
-    one host read an iteration; the first iteration runs unconditionally, as
-    the JAX loop's first test always holds."""
+    """The plain torch version of :func:`select_walk`: the root entry
+    (:func:`root_entry` when ``action`` is None), then every env walks down
+    in lockstep until its best edge is unexpanded or leads to a terminal
+    child, one host read an iteration; the first iteration runs
+    unconditionally, as the JAX loop's first test always holds."""
+    if action is None:
+        action, kid, kid_term = root_entry(tree, c_puct)
     batch = kid.shape[0]
     dev = kid.device
     env = torch.arange(batch, device=dev)
@@ -113,14 +128,15 @@ def select_walk_reference(tree, action, kid, kid_term, c_puct: float, iters=None
 
 
 def select_walk(tree, action, kid, kid_term, c_puct: float, iters=None):
-    """The PUCT selection below a root edge: from each env's root entry
-    (``action`` int64 [B], ``kid`` int64 [B] its child slot or -1,
-    ``kid_term`` bool [B]), walk down while the chosen child exists and is
-    not terminal, taking the best edge (:func:`best_edge`) at each node.
-    Returns ``(leaf_parent, action, existing_kid)``, int64 [B]: the node the
-    walk stopped at, its chosen edge and that edge's child (-1 when
-    unexpanded; else a terminal child)."""
-    device = kid.device
+    """The PUCT selection: from each env's root entry (``action`` int64 [B],
+    ``kid`` int64 [B] its child slot or -1, ``kid_term`` bool [B]; all three
+    None for the best edge at slot 0, :func:`root_entry`), walk down while
+    the chosen child exists and is not terminal, taking the best edge
+    (:func:`best_edge`) at each node.  Returns ``(leaf_parent, action,
+    existing_kid)``, int64 [B]: the node the walk stopped at, its chosen
+    edge and that edge's child (-1 when unexpanded; else a terminal
+    child)."""
+    device = tree.visit.device
     if device.type == "cpu":
         return select_walk_reference(tree, action, kid, kid_term, c_puct, iters)
     if device.type != "cuda":
@@ -154,7 +170,9 @@ def backup_walk(tree, node, value, iters=None) -> None:
     """Back ``value`` (f32 [B], from the perspective of the player to move at
     ``node``) up from each env's ``node`` (int64 [B], >= 0) to its root: a
     visit and the value, negated at each level, added to every node of the
-    path, in place in ``tree.visit`` and ``tree.value_sum``."""
+    path, in place in ``tree.visit`` and ``tree.value_sum``; and +0.0 added
+    at slot 0 of every env whose walk is shorter than the longest, as the
+    lockstep loop does."""
     device = node.device
     if device.type == "cpu":
         return backup_walk_reference(tree, node, value, iters)
@@ -190,6 +208,17 @@ def _env_vector(x, batch: int, dtype, device, what: str) -> torch.Tensor:
     return x.contiguous()
 
 
+def env_smem_bytes(kernel: str, nodes: int) -> int:
+    """Shared memory one env of ``kernel`` ("select" or "backup") takes at
+    ``nodes`` slots (csrc/search.cu's ``select_env_bytes`` and
+    ``backup_env_bytes``); raises where it does not fit in a block."""
+    per = 24 * nodes + -(-nodes // 16) * 16 if kernel == "select" else 8 * nodes
+    if per > SMEM_LIMIT:
+        raise ValueError(f"{kernel}_walk: {nodes} slots need {per} bytes of shared memory "
+                         f"an env, more than a block's {SMEM_LIMIT}")
+    return per
+
+
 def _iters_ptr(iters, device):
     if iters is None:
         return None
@@ -206,20 +235,23 @@ def _kernels():
                                                 ctypes.c_int, ctypes.c_void_p]
     select.restype = ctypes.c_int
     backup = lib.twixt_backup_walk
-    backup.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    backup.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     backup.restype = ctypes.c_int
     return select, backup
 
 
-def _finish_backup(tree, lengths: torch.Tensor, iters) -> None:
-    """What the plain loop does after each env's own walk, from the walks'
-    ``lengths`` (int32 [B]) with device ops and no host read: it runs as
-    long as the longest walk and adds +0.0 at slot 0 of every env whose
-    walk ended earlier (turning a -0.0 sum into +0.0)."""
-    longest = lengths.max()
-    root = tree.value_sum[:, 0]
-    root.copy_(torch.where(lengths < longest, root + 0.0, root))
-    _raise_count(iters, longest)
+# the backup kernel's scratch a (device, stream): int32 [2 + B], its counters
+# zeroed once here and by the last block of every launch after; launches on
+# one stream run in order, so none finds another's counters set
+_SCRATCH: dict = {}
+
+
+def _backup_scratch(device, stream: int, batch: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < 2 + batch:
+        buf = _SCRATCH[key] = torch.zeros(2 + batch, dtype=_I32, device=device)
+    return buf
 
 
 def _check_rc(rc: int, what: str) -> None:
@@ -228,17 +260,21 @@ def _check_rc(rc: int, what: str) -> None:
 
 
 def _launch_select(tree, action, kid, kid_term, c_puct, iters):
-    device = kid.device
+    device = tree.visit.device
     fields = ("uprior", *_SLOT_FIELDS)
     batch, nodes, a_dim = _check_tree(tree, device, fields)
-    action = _env_vector(action, batch, _I64, device, "action")
-    kid = _env_vector(kid, batch, _I64, device, "kid")
-    kid_term = _env_vector(kid_term, batch, torch.bool, device, "kid_term")
+    env_smem_bytes("select", nodes)
+    if action is None:
+        entry = (None, None, None)
+    else:
+        action = _env_vector(action, batch, _I64, device, "action")
+        kid = _env_vector(kid, batch, _I64, device, "kid")
+        kid_term = _env_vector(kid_term, batch, torch.bool, device, "kid_term")
+        entry = (action.data_ptr(), kid.data_ptr(), kid_term.data_ptr())
     out = torch.empty((3, batch), dtype=_I64, device=device)
     with torch.cuda.device(device):
         rc = _kernels()[0](
-            *(getattr(tree, name).data_ptr() for name in fields),
-            action.data_ptr(), kid.data_ptr(), kid_term.data_ptr(),
+            *(getattr(tree, name).data_ptr() for name in fields), *entry,
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             _iters_ptr(iters, device), c_puct, nodes, a_dim, batch,
             torch.cuda.current_stream(device).cuda_stream,
@@ -251,15 +287,17 @@ def _launch_select(tree, action, kid, kid_term, c_puct, iters):
 def _launch_backup(tree, node, value, iters):
     device = node.device
     batch, nodes, _ = _check_tree(tree, device, ("visit", "value_sum", "parent"))
+    env_smem_bytes("backup", nodes)
     node = _env_vector(node, batch, _I64, device, "node")
     value = _env_vector(value, batch, torch.float32, device, "value")
-    lengths = torch.empty(batch, dtype=_I32, device=device)
+    iters_ptr = _iters_ptr(iters, device)
     with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        scratch = _backup_scratch(device, stream, batch)
         rc = _kernels()[1](
             tree.visit.data_ptr(), tree.value_sum.data_ptr(), tree.parent.data_ptr(),
-            node.data_ptr(), value.data_ptr(), lengths.data_ptr(), nodes, batch,
-            torch.cuda.current_stream(device).cuda_stream,
+            node.data_ptr(), value.data_ptr(), scratch.data_ptr(), iters_ptr, nodes, batch,
+            stream,
         )
         _check_rc(rc, "backup_walk")
         backup_walk.launches += 1
-    _finish_backup(tree, lengths, iters)

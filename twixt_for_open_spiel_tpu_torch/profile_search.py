@@ -11,8 +11,8 @@ activities, after a warm-up search and one search timed without the
 profiler.  The search's parts are labelled by wrapping, for the profiled
 call only, the functions ``models/mcts.py`` calls:
 
-  root       ``best_edge`` (the root entry, torch ops)
-  select     ``select_walk`` (the selection below the root, S1b)
+  select     ``select_walk`` (the PUCT root entry and the selection below
+             it, S1b)
   expand     ``bit_step`` (the parent slot's step, the child's legal mask
              and its slot write, S1a)
   evaluate   the evaluator: observation and net
@@ -60,8 +60,8 @@ CLASSES = (
     ("optimizer", ("multi_tensor_apply",)),
     ("cast and copy", ("copy", "cast")),
 )
-LABELS = {"root": "best_edge", "select": "select_walk", "expand": "bit_step",
-          "prior": "masked_policy", "backup": "backup_walk"}
+LABELS = {"select": "select_walk", "expand": "bit_step", "prior": "masked_policy",
+          "backup": "backup_walk"}
 
 
 def _labelled(label, fn):
@@ -143,7 +143,7 @@ def profile_search(dev, sims: int = 64, backup: str = "auto") -> None:
         _, _, stats = search(_labelled("evaluate", evaluate))
         prof_ms = (time.perf_counter() - t0) * 1e3
 
-    labels = ("root", "select", "expand", "evaluate", "prior", "backup")
+    labels = ("select", "expand", "evaluate", "prior", "backup")
     events = prof.events()
     # device activities, without the labels' own ranges on the device timeline
     kernels = [e for e in events if e.device_type.name == "CUDA" and e.name not in labels
