@@ -75,19 +75,23 @@ ends the run with a non-zero exit.
   13. the search's kernels: every call of S1a, S1b and S1c in
       ``search_batch`` with the bf16 net at config-5 width (board 12, batch
       512, 64 simulations) under both backups and at board 24 (batch 256,
-      200 simulations, the walk) runs the kernel and its plain version on
-      copies of the same inputs (S1b from the root, the PUCT entry),
-      bit-equal (floats by bit pattern), and in the first of them every S2a
-      call too, within ``S2_TOL``; then the main path, config-5 searches
-      under both backups, with the three kernels' launches counted; S1b
-      and S1c again on simulation 32's trees padded with unlinked slots
-      until one env needs more than 48 KB of shared memory
-      (``S1_WIDE_SLOTS``), bit-equal; each kernel's time (launches back to
-      back, and the device's time behind a spin kernel) and its plain
-      version's on simulation 32's inputs, beside its bound (the bytes this
-      call's walks need), the deepest walk of those inputs, and an empty
-      kernel of the walks' launch shape timed the same two ways (the launch
-      floor); then ``search_batch`` with the
+      200 simulations, the walk), and in ``gumbel_search_batch`` at both
+      under the walk, runs the kernel and its plain version on copies of
+      the same inputs (S1b from the root, the PUCT entry, and from Gumbel's
+      forced root edges), bit-equal (floats by bit pattern), and in the
+      first of them every S2a call too, within ``S2_TOL``; then the main
+      path, config-5 searches under both backups, with the three kernels'
+      launches counted; S1b (from the root and from a forced entry) and
+      S1c again on simulation 32's trees padded with unlinked slots until
+      one env needs more than 48 KB of shared memory (``S1_WIDE_SLOTS``),
+      and one env at the most slots that fit a block (``S1_EDGE_SLOTS``),
+      bit-equal, and one slot more refused by each wrapper; each kernel's
+      time (launches back to back, and the device's time behind a spin
+      kernel) and its plain version's on simulation 32's inputs (S1b also
+      below the root's best edge, held to plain there), beside its bound
+      (the bytes this call's walks need), the deepest walk of those
+      inputs, and an empty kernel of the walks' launch shape timed the same
+      two ways (the launch floor); then ``search_batch`` with the
       table and uniform evaluators of ``tests/test_mcts_exact.py`` over its
       scenarios, both backups, every kernel call held to its plain version
       again: root visits, ``root_q`` (<= 1e-5) and the walks' iteration
@@ -437,11 +441,14 @@ NET_TOL = {"f32": 1e-4, "bf16": 2.0**-4}
 BF16_FLOPS_PER_S = 989e12
 
 # --- the search's kernels (S1a bit_step, S1b select_walk, S1c backup_walk) --
-# (board, batch, simulations, backup): searches with the bf16 128x6 net in
-# which every kernel call is held to its plain version on a copy of its
-# inputs: config 5's width under both backups, and board 24 under the walk
-# (201 slots)
-S1_CHECK_ROWS = [(12, 512, 64, "amask"), (12, 512, 64, "walk"), (24, 256, 200, "walk")]
+# (board, batch, simulations, backup, search): searches with the bf16 128x6
+# net in which every kernel call is held to its plain version on a copy of
+# its inputs: config 5's width under both backups, and board 24 under the
+# walk (201 slots); the PUCT search (S1b from the root) and the Gumbel one
+# (S1b from its forced root edges)
+S1_CHECK_ROWS = [(12, 512, 64, "amask", "puct"), (12, 512, 64, "walk", "puct"),
+                 (24, 256, 200, "walk", "puct"), (12, 512, 64, "walk", "gumbel"),
+                 (24, 256, 200, "walk", "gumbel")]
 S1_TIMED_CALL = 32  # the kernels are timed on the inputs of this simulation
 S1_REPS = 50  # launches back to back, a run
 S1_PLAIN_REPS = 3
@@ -461,6 +468,10 @@ S1_ERRS: dict = {}
 # above 48 KB; the captured trees are padded with unlinked slots to these
 S1_WIDE_SLOTS = {"select_walk": 2500, "backup_walk": 7000}
 S1_WIDE_ENVS = 64
+# the most slots at which one env's rows fit Hopper's 227 KB of shared
+# memory a block (select_walk 232,440 bytes, backup_walk 232,448): the
+# kernels run there, and one slot more is refused with the wrapper's error
+S1_EDGE_SLOTS = {"select_walk": 9297, "backup_walk": 29_056}
 
 # --- the net's LayerNorm (S2a forward, S2b backward: ops/layer_norm.py) -----
 # kernel against plain version on the card, on the same inputs:
@@ -1630,6 +1641,34 @@ def s1_roots(n: int, b: int, dev):
     return tbit.bit_random_rollout(3, n, 24 if n <= 12 else 60, tbit.bit_reset(n, b, dev))[0]
 
 
+def select_bound(tree, a0, k0, kt0, c_puct) -> tuple:
+    """S1b's least time on one call's inputs (``s1_bounds``): (ms, by)."""
+    b, nodes = tree.visit.shape
+    a_dim = tree.uprior.shape[-1]
+    leaf, _, _ = twalk.select_walk_reference(tree, a0, k0, kt0, c_puct)
+    # the walk scores the path's nodes (amask tree), the root too when it
+    # starts there (a None entry); a level reads the node's visit and prior
+    # row and the chosen child's action and flag, and each child of the node
+    # its visit, terminal, value and edge prior; an env that scores a level
+    # reads its link row and its linked slots' parents once
+    env = torch.arange(b, device=leaf.device)
+    path = tree.amask[env, leaf].clone()
+    if a0 is not None:
+        path[:, 0] = False
+    kids = torch.zeros((b, nodes + 1), dtype=torch.int64, device=leaf.device).scatter_add_(
+        1, torch.where(tree.linked, tree.parent, nodes).clamp_min(0),
+        torch.ones((b, nodes), dtype=torch.int64, device=leaf.device))[:, :nodes]
+    env_descents = path.sum(1)
+    descents = int(env_descents.sum())
+    links = int(((env_descents > 0) * (nodes + 8 * tree.linked.sum(1))).sum())
+    children = int((kids * path).sum())
+    nbytes = ((0 if a0 is None else 17 * b) + 24 * b + descents * (4 + 4 * a_dim + 9) + links
+              + 13 * children)
+    flops = descents * 3 * a_dim + 8 * children
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def s1_bounds(captured: dict, card: str) -> dict:
     """The least time of each kernel on its captured inputs: the bytes the
     function moves (each input read once, each output written once, what
@@ -1642,30 +1681,7 @@ def s1_bounds(captured: dict, card: str) -> dict:
     nbytes = 2 * bit_state_bytes(n, b) + 16 * b + b * n * n
     out["bit_step"] = (nbytes / HBM_BYTES_PER_S * 1e3, "bytes")
 
-    tree, a0, k0, kt0, c_puct = captured["select_walk"]
-    b, nodes = tree.visit.shape
-    a_dim = tree.uprior.shape[-1]
-    leaf, _, _ = twalk.select_walk_reference(tree, a0, k0, kt0, c_puct)
-    # a level reads the node's visit and prior row, every slot's link and
-    # each linked slot's parent, each child's visit, terminal, value and edge
-    # prior, the chosen child's action; the walk scores the path's nodes
-    # (amask tree), the root too when it starts there (a None entry)
-    env = torch.arange(b, device=leaf.device)
-    path = tree.amask[env, leaf].clone()
-    if a0 is not None:
-        path[:, 0] = False
-    kids = torch.zeros((b, nodes + 1), dtype=torch.int64, device=leaf.device).scatter_add_(
-        1, torch.where(tree.linked, tree.parent, nodes).clamp_min(0),
-        torch.ones((b, nodes), dtype=torch.int64, device=leaf.device))[:, :nodes]
-    env_descents = path.sum(1)
-    descents = int(env_descents.sum())
-    parents_read = int((env_descents * tree.linked.sum(1)).sum())
-    children = int((kids * path).sum())
-    nbytes = ((0 if a0 is None else 17 * b) + 24 * b + descents * (4 + 4 * a_dim + nodes + 9)
-              + 8 * parents_read + 13 * children)
-    flops = descents * 3 * a_dim + 8 * children
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
-    out["select_walk"] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    out["select_walk"] = select_bound(*captured["select_walk"])
 
     tree, node, value = captured["backup_walk"]
     steps, live = 0, node.clone()
@@ -1695,27 +1711,52 @@ def padded(tree, nodes: int, envs: int):
 def wide_tree_path(captured: dict) -> None:
     """S1b and S1c where one env's rows need more than 48 KB of shared
     memory, so that the kernels opt in above it: the captured calls' trees
-    padded with unlinked slots (``S1_WIDE_SLOTS``), kernel against plain
-    version, bit for bit."""
+    padded with unlinked slots (``S1_WIDE_SLOTS``; S1b from the root and
+    from the root's best edge as a forced entry), kernel against plain
+    version, bit for bit; then one env at the most slots that fit
+    (``S1_EDGE_SLOTS``), and one slot more, which each wrapper refuses."""
     tree, _, _, _, c_puct = captured["select_walk"]
-    wide = padded(tree, S1_WIDE_SLOTS["select_walk"], S1_WIDE_ENVS)
-    iters, ref_iters = (torch.zeros((), dtype=torch.int32, device=tree.visit.device)
-                        for _ in range(2))
-    got = twalk.select_walk(wide, None, None, None, c_puct, iters)
-    want = twalk.select_walk_reference(wide, None, None, None, c_puct, ref_iters)
-    note_s1("select_walk", diff([*zip(got, want), (iters, ref_iters)]))
-
     btree, node, value = captured["backup_walk"]
-    wide = padded(btree, S1_WIDE_SLOTS["backup_walk"], S1_WIDE_ENVS)
-    ref = wide._replace(visit=wide.visit.clone(), value_sum=wide.value_sum.clone())
-    iters, ref_iters = (torch.zeros((), dtype=torch.int32, device=node.device) for _ in range(2))
-    twalk.backup_walk(wide, node[:S1_WIDE_ENVS], value[:S1_WIDE_ENVS], iters)
-    twalk.backup_walk_reference(ref, node[:S1_WIDE_ENVS], value[:S1_WIDE_ENVS], ref_iters)
-    note_s1("backup_walk", diff([(wide.visit, ref.visit), (wide.value_sum, ref.value_sum),
-                                 (iters, ref_iters)]))
+    for envs, slots in ((S1_WIDE_ENVS, S1_WIDE_SLOTS), (1, S1_EDGE_SLOTS)):
+        wide = padded(tree, slots["select_walk"], envs)
+        for entry in ((None, None, None), twalk.root_entry(wide, c_puct)):
+            iters, ref_iters = (torch.zeros((), dtype=torch.int32, device=tree.visit.device)
+                                for _ in range(2))
+            got = twalk.select_walk(wide, *entry, c_puct, iters)
+            want = twalk.select_walk_reference(wide, *entry, c_puct, ref_iters)
+            note_s1("select_walk", diff([*zip(got, want), (iters, ref_iters)]))
+        del wide
+
+        wide = padded(btree, slots["backup_walk"], envs)
+        ref = wide._replace(visit=wide.visit.clone(), value_sum=wide.value_sum.clone())
+        iters, ref_iters = (torch.zeros((), dtype=torch.int32, device=node.device)
+                            for _ in range(2))
+        twalk.backup_walk(wide, node[:envs], value[:envs], iters)
+        twalk.backup_walk_reference(ref, node[:envs], value[:envs], ref_iters)
+        note_s1("backup_walk", diff([(wide.visit, ref.visit), (wide.value_sum, ref.value_sum),
+                                     (iters, ref_iters)]))
+        del wide, ref
     report_s1_equal(f"one env above 48 KB of shared memory ({S1_WIDE_ENVS} envs: select_walk "
                     f"at {S1_WIDE_SLOTS['select_walk']} slots, backup_walk at "
-                    f"{S1_WIDE_SLOTS['backup_walk']})")
+                    f"{S1_WIDE_SLOTS['backup_walk']}) and one env at the most that fit "
+                    f"(select_walk {S1_EDGE_SLOTS['select_walk']}, backup_walk "
+                    f"{S1_EDGE_SLOTS['backup_walk']})")
+
+    launches = (twalk.select_walk.launches, twalk.backup_walk.launches)
+    refused = []
+    for name, fn in (("select_walk", lambda t: twalk.select_walk(t, None, None, None, c_puct)),
+                     ("backup_walk", lambda t: twalk.backup_walk(t, node[:1], value[:1]))):
+        over = padded(tree if name == "select_walk" else btree, S1_EDGE_SLOTS[name] + 1, 1)
+        try:
+            fn(over)
+        except ValueError as err:
+            refused.append(str(err))
+        del over
+    torch.cuda.synchronize()
+    print(f"[S1 edge] one slot past the most that fit: {refused}")
+    require(len(refused) == 2 and all("shared memory" in e for e in refused)
+            and launches == (twalk.select_walk.launches, twalk.backup_walk.launches),
+            "each walk refuses one env past a block's shared memory, launching nothing")
 
 
 def search_kernels_path(dev, card: str) -> list:
@@ -1724,24 +1765,33 @@ def search_kernels_path(dev, card: str) -> list:
     both backups) with the launch counts; each kernel's time, plain time
     and bound on one simulation's inputs.  Returns the kernels' reports."""
     captured = {}
-    for row, (n, b, sims, backup) in enumerate(S1_CHECK_ROWS):
+    for row, (n, b, sims, backup, search) in enumerate(S1_CHECK_ROWS):
         net = create_net(n, device=dev)
         roots = s1_roots(n, b, dev)
         gen = torch.Generator(device=dev).manual_seed(0)
+        kw = dict(evaluator=mcts.net_evaluator(call_net, n), board_size=n,
+                  num_simulations=sims, backup=backup)
         t0 = time.perf_counter()
         # the first (config 5's search) holds S2's calls to their plain version too
         held = held_s2("search 128x6") if row == 0 else contextlib.nullcontext()
-        with held_to_plain(captured if (n, backup) != (24, "walk") else None), held:
-            probs, _, stats = mcts.search_batch(
-                net, roots, gen, evaluator=mcts.net_evaluator(call_net, n), board_size=n,
-                num_simulations=sims, dirichlet_frac=0.25, backup=backup, return_stats=True)
-        require(bool(((probs * sims).round().sum(-1) == sims).all()), "root visits")
-        report_s1_equal(f"search_batch n={n} batch={b} sims={sims} backup={backup}, walks "
+        with held_to_plain(captured if (n, search) == (12, "puct") else None), held:
+            if search == "puct":
+                probs, _, stats = mcts.search_batch(net, roots, gen, dirichlet_frac=0.25,
+                                                    return_stats=True, **kw)
+                require(bool(((probs * sims).round().sum(-1) == sims).all()), "root visits")
+            else:
+                action, improved, root_q = mcts.gumbel_search_batch(net, roots, gen, **kw)
+                legal = tbit.bit_legal_mask_flat(roots, roots.current_player.clamp(0, 1), n).T
+                require(bool(legal[torch.arange(b, device=dev), action].all())
+                        and bool(torch.isfinite(improved).all())
+                        and bool(torch.isfinite(root_q).all()), "the Gumbel search's outputs")
+                stats = "forced root edges"
+        report_s1_equal(f"{search} search n={n} batch={b} sims={sims} backup={backup}, walks "
                         f"{stats}, {time.perf_counter() - t0} s")
     report_s2_equal("search 128x6")
 
     # the main path: config-5 searches, each kernel's launches counted
-    n, b, sims, _ = S1_CHECK_ROWS[0]
+    n, b, sims, *_ = S1_CHECK_ROWS[0]
     net = create_net(n, device=dev)
     roots = s1_roots(n, b, dev)
     zero_counts()
@@ -1770,6 +1820,17 @@ def search_kernels_path(dev, card: str) -> list:
                         lambda: twalk.backup_walk_reference(ref_tree, node, value)),
     }
     letter = {"bit_step": "S1a", "select_walk": "S1b", "backup_walk": "S1c"}
+    # S1b below a given root entry too (Gumbel's form): the root's best edge
+    # as a forced entry, held to plain on this tree
+    entry = twalk.root_entry(tree, c_puct)
+    runs["select_walk below the root"] = (
+        lambda: twalk.select_walk(tree, *entry, c_puct),
+        lambda: twalk.select_walk_reference(tree, *entry, c_puct))
+    bounds["select_walk below the root"] = select_bound(tree, *entry, c_puct)
+    note_s1("select_walk", diff(list(zip(runs["select_walk below the root"][0](),
+                                         runs["select_walk below the root"][1]()))))
+    report_s1_equal(f"select_walk below the root's best edge on simulation {S1_TIMED_CALL}'s "
+                    "tree")
     # the deepest walk of the timed calls: descents below the root entry, and
     # the longest backup path
     sel_iters = torch.zeros((), dtype=torch.int32, device=dev)
@@ -1778,6 +1839,8 @@ def search_kernels_path(dev, card: str) -> list:
     twalk.backup_walk_reference(mcts.Tree(*(x.clone() for x in btree)), node, value, bk_iters)
     walks = {"select_walk": f"deepest walk {int(sel_iters) - 1} descents below the root "
                             f"entry ({'from the root' if a0 is None else 'a forced entry'})",
+             "select_walk below the root": f"deepest walk {int(sel_iters) - 1} descents "
+                                           "below the given entry",
              "backup_walk": f"longest walk {int(bk_iters)} nodes"}
     # the launch floor: an empty kernel of the walks' launch shape (4 envs a
     # block at these slots), enqueued by a bare ctypes call
@@ -1803,12 +1866,15 @@ def search_kernels_path(dev, card: str) -> list:
         plain()
         plain_ms = statistics.median(timed_ms(plain, S1_PLAIN_REPS))
         bound_ms, by = bounds[name]
-        calls, err, _ = S1_ERRS[name]
-        print(f"[S1 rate] {letter[name]} {name} on simulation {S1_TIMED_CALL}'s inputs of the "
+        short = name.split()[0]
+        print(f"[S1 rate] {letter[short]} {name} on simulation {S1_TIMED_CALL}'s inputs of the "
               f"config-5 search (n={n} batch={b}): kernel {ms} ms a launch ({S1_REPS} back to "
               f"back), device {dev_ms} ms a launch (behind a spin kernel), plain {plain_ms} ms; "
-              f"bound {bound_ms} ms ({by}); launches on the main path {counts[letter[name]]}"
+              f"bound {bound_ms} ms ({by}); launches on the main path {counts[letter[short]]}"
               f"{'; ' + walks[name] if name in walks else ''} [{card}]")
+        if name != short:
+            continue  # a second form of one kernel: the kernels line has one entry a kernel
+        calls, err, _ = S1_ERRS[name]
         reports.append({"name": name, "route": "cuda", "source": CSRC + S1_SOURCES[name],
                         "replaces": S1_REPLACES[name], "launches": counts[letter[name]],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,

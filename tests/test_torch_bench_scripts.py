@@ -20,7 +20,6 @@ import torch
 from twixt_for_open_spiel_tpu_torch import arena_checkpoints as xarena
 from twixt_for_open_spiel_tpu_torch import arena_gate_agreement as agree
 from twixt_for_open_spiel_tpu_torch import bench_bitboard, bench_fused_bit
-from twixt_for_open_spiel_tpu_torch import bench_search_kernels
 from twixt_for_open_spiel_tpu_torch import bench_search_scaling as scaling
 from twixt_for_open_spiel_tpu_torch import bench_selfplay
 from twixt_for_open_spiel_tpu_torch.models import mcts
@@ -164,11 +163,3 @@ def test_agreement_needs_a_board_size(capsys):
         agree.parse_args(["--ckpt=x"])
     assert exc.value.code == 2
     assert "--board_size is required" in capsys.readouterr().err
-
-
-def test_search_kernels_bench_needs_a_card(monkeypatch, capsys):
-    """The search kernels' timer has no CPU mode: without a card it exits 1
-    and names why."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert bench_search_kernels.main(["--call=3", "--reps=2"]) == 1
-    assert "no CUDA device" in capsys.readouterr().err

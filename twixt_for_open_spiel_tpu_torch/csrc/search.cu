@@ -68,9 +68,14 @@
 // and the launch.  Measured on an H100 80GB HBM3 at 700 W (PERF.md §6,
 // simulation 32 of a config-5 search, a walk of three levels): an empty
 // kernel of the walks' launch shape takes 1.8-2.0 µs of device time a
-// launch (4.2-6.3 µs back to back from the host), S1b 6.7-6.8 µs and S1c
-// 6.5-7.2 µs; the wrappers' host time, 17-60 µs a call, sets the pace of
-// launches back to back.
+// launch (4.2-6.3 µs back to back from the host), S1b 6.7-6.9 µs from the
+// root (5.8-5.9 below a given entry) and S1c 6.5-7.2 µs; the wrappers'
+// host time, 17-77 µs a call, sets the pace of launches back to back.
+//
+// Shared memory: the launchers size a block from select_env_bytes and
+// backup_env_bytes beside the kernel's static bytes, opt in above 48 KB,
+// and return TOO_MANY_SLOTS where one env exceeds the device's most (on
+// Hopper 9,298 slots for S1b, 29,057 for S1c), which the wrapper raises.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (see ops/_cuda.py).  Plain C entry points, bound with
@@ -88,15 +93,15 @@ namespace {
 constexpr int WARP = 32;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_ENVS_PER_BLOCK = 4;  // warps
-// a block's most shared memory on Hopper (227 KB), and what it gets without
-// opting in
-constexpr int SMEM_LIMIT = 232448;
+// the shared memory a block gets without opting in
 constexpr int SMEM_DEFAULT = 48 * 1024;
 constexpr int PRIOR_UNROLL = 8;  // prior-row loads a lane keeps in flight
+// the launchers' code for a ``nodes`` at which one env's staged rows do not
+// fit a block's shared memory (ops/search_walk.py raises its own error for it)
+constexpr int TOO_MANY_SLOTS = -1;
 
 // Shared bytes an env: select_walk's six 4-byte rows and its 1-byte row
-// (rounded to 16), backup_walk's parent row and path (ops/search_walk.py
-// mirrors both for its check).
+// (rounded to 16), backup_walk's parent row and path.
 __host__ __device__ constexpr int select_env_bytes(int nodes) {
   return 24 * nodes + (nodes + 15) / 16 * 16;
 }
@@ -279,7 +284,6 @@ __global__ void __launch_bounds__(MAX_ENVS_PER_BLOCK * WARP) backup_walk_kernel(
     const long long* __restrict__ leaf, const float* __restrict__ value, int* scratch,
     int* iters, int nodes, int batch, int envs_per_block) {
   extern __shared__ int chains[];
-  __shared__ bool last;
   const int lane = threadIdx.x % WARP;
   const int warp = threadIdx.x / WARP;
   const int env = blockIdx.x * envs_per_block + warp;
@@ -318,9 +322,9 @@ __global__ void __launch_bounds__(MAX_ENVS_PER_BLOCK * WARP) backup_walk_kernel(
   // the last block to finish: the plain loop's trailing +0.0s and its count
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(scratch + 1, 1) == (int)gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
+  int ticket_last = 0;
+  if (threadIdx.x == 0) ticket_last = atomicAdd(scratch + 1, 1) == (int)gridDim.x - 1;
+  if (!__syncthreads_or(ticket_last)) return;  // a barrier that hands thread 0's answer to all
   __threadfence();
   const int longest = max(1, __ldcg(scratch));
   for (int e = threadIdx.x; e < batch; e += blockDim.x) {
@@ -337,18 +341,31 @@ __global__ void __launch_bounds__(MAX_ENVS_PER_BLOCK * WARP) backup_walk_kernel(
 
 __global__ void empty_kernel() {}
 
-// Envs a block and dynamic shared bytes a block for ``env_bytes`` an env
-// (up to 4 envs within 48 KB, else one env opted in above it); an error
-// when one env does not fit.
+// A kernel's static shared bytes (neither walk declares any), -1 when
+// the runtime cannot say; each launcher asks once.
 template <typename Kernel>
-int launch_shape(Kernel kernel, int env_bytes, int batch, int* envs, int* bytes) {
-  if (env_bytes > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  *envs = std::max(1, std::min({MAX_ENVS_PER_BLOCK, batch, SMEM_DEFAULT / env_bytes}));
+int static_smem(Kernel kernel) {
+  cudaFuncAttributes attr;
+  return cudaFuncGetAttributes(&attr, kernel) == cudaSuccess ? (int)attr.sharedSizeBytes : -1;
+}
+
+// Envs a block and dynamic shared bytes a block for ``env_bytes`` an env,
+// beside the kernel's ``fixed`` static bytes: up to 4 envs within the 48 KB
+// a block gets without opting in, else one env opted in up to the device's
+// most (227 KB on Hopper); TOO_MANY_SLOTS when one env does not fit.
+template <typename Kernel>
+int launch_shape(Kernel kernel, int fixed, int env_bytes, int batch, int* envs, int* bytes) {
+  if (fixed < 0) return (int)cudaErrorInvalidDeviceFunction;
+  *envs = std::max(1, std::min({MAX_ENVS_PER_BLOCK, batch, (SMEM_DEFAULT - fixed) / env_bytes}));
   *bytes = *envs * env_bytes;
-  if (*bytes > SMEM_DEFAULT)
-    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     *bytes);
-  return 0;
+  if (*bytes + fixed <= SMEM_DEFAULT) return 0;
+  int device = 0, most = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  if (*bytes + fixed > most) return TOO_MANY_SLOTS;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *bytes);
 }
 
 }  // namespace
@@ -367,7 +384,9 @@ int twixt_select_walk(const void* uprior, const void* visit, const void* value_s
                       float c_puct, int nodes, int a_dim, int batch, void* stream) {
   if (nodes < 1 || a_dim < 1 || batch < 1) return (int)cudaErrorInvalidValue;
   int envs = 0, bytes = 0;
-  const int rc = launch_shape(select_walk_kernel, select_env_bytes(nodes), batch, &envs, &bytes);
+  static const int fixed = static_smem(select_walk_kernel);
+  const int rc =
+      launch_shape(select_walk_kernel, fixed, select_env_bytes(nodes), batch, &envs, &bytes);
   if (rc != 0) return rc;
   select_walk_kernel<<<(batch + envs - 1) / envs, envs * WARP, bytes, (cudaStream_t)stream>>>(
       (const float*)uprior, (const int*)visit, (const float*)value_sum,
@@ -387,7 +406,9 @@ int twixt_backup_walk(void* visit, void* value_sum, const void* parent, const vo
                       void* stream) {
   if (nodes < 1 || batch < 1) return (int)cudaErrorInvalidValue;
   int envs = 0, bytes = 0;
-  const int rc = launch_shape(backup_walk_kernel, backup_env_bytes(nodes), batch, &envs, &bytes);
+  static const int fixed = static_smem(backup_walk_kernel);
+  const int rc =
+      launch_shape(backup_walk_kernel, fixed, backup_env_bytes(nodes), batch, &envs, &bytes);
   if (rc != 0) return rc;
   backup_walk_kernel<<<(batch + envs - 1) / envs, envs * WARP, bytes, (cudaStream_t)stream>>>(
       (int*)visit, (float*)value_sum, (const long long*)parent, (const long long*)leaf,
@@ -403,6 +424,7 @@ int twixt_search_empty(int blocks, int threads, void* stream) {
 }
 
 const char* twixt_cuda_error_string(int code) {
+  if (code == TOO_MANY_SLOTS) return "one env's slot rows do not fit a block's shared memory";
   return cudaGetErrorString((cudaError_t)code);
 }
 

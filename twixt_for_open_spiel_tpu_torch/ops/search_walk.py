@@ -37,9 +37,10 @@ _I64 = torch.int64
 _SLOT_FIELDS = {"visit": _I32, "value_sum": torch.float32, "parent": _I64, "pa": _I64,
                 "e_prior": torch.float32, "terminal": torch.bool, "tval": torch.float32,
                 "linked": torch.bool}
-# a block's most shared memory on Hopper (227 KB): one env's staged rows
-# must fit (csrc/search.cu's SMEM_LIMIT)
-SMEM_LIMIT = 232_448
+# the launchers' return code where one env's staged rows do not fit a
+# block's shared memory (csrc/search.cu's TOO_MANY_SLOTS; the kernels' layout
+# and the device's limit decide it there)
+TOO_MANY_SLOTS = -1
 
 
 def best_edge(tree, env: torch.Tensor, node: torch.Tensor, c_puct: float):
@@ -208,17 +209,6 @@ def _env_vector(x, batch: int, dtype, device, what: str) -> torch.Tensor:
     return x.contiguous()
 
 
-def env_smem_bytes(kernel: str, nodes: int) -> int:
-    """Shared memory one env of ``kernel`` ("select" or "backup") takes at
-    ``nodes`` slots (csrc/search.cu's ``select_env_bytes`` and
-    ``backup_env_bytes``); raises where it does not fit in a block."""
-    per = 24 * nodes + -(-nodes // 16) * 16 if kernel == "select" else 8 * nodes
-    if per > SMEM_LIMIT:
-        raise ValueError(f"{kernel}_walk: {nodes} slots need {per} bytes of shared memory "
-                         f"an env, more than a block's {SMEM_LIMIT}")
-    return per
-
-
 def _iters_ptr(iters, device):
     if iters is None:
         return None
@@ -254,7 +244,10 @@ def _backup_scratch(device, stream: int, batch: int) -> torch.Tensor:
     return buf
 
 
-def _check_rc(rc: int, what: str) -> None:
+def _check_rc(rc: int, what: str, nodes: int) -> None:
+    if rc == TOO_MANY_SLOTS:
+        raise ValueError(f"{what}: {nodes} slots: one env's staged rows do not fit a block's "
+                         "shared memory")
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: " + _cuda.error_string("search", rc))
 
@@ -263,7 +256,6 @@ def _launch_select(tree, action, kid, kid_term, c_puct, iters):
     device = tree.visit.device
     fields = ("uprior", *_SLOT_FIELDS)
     batch, nodes, a_dim = _check_tree(tree, device, fields)
-    env_smem_bytes("select", nodes)
     if action is None:
         entry = (None, None, None)
     else:
@@ -279,7 +271,7 @@ def _launch_select(tree, action, kid, kid_term, c_puct, iters):
             _iters_ptr(iters, device), c_puct, nodes, a_dim, batch,
             torch.cuda.current_stream(device).cuda_stream,
         )
-        _check_rc(rc, "select_walk")
+        _check_rc(rc, "select_walk", nodes)
         select_walk.launches += 1
     return out[0], out[1], out[2]
 
@@ -287,7 +279,6 @@ def _launch_select(tree, action, kid, kid_term, c_puct, iters):
 def _launch_backup(tree, node, value, iters):
     device = node.device
     batch, nodes, _ = _check_tree(tree, device, ("visit", "value_sum", "parent"))
-    env_smem_bytes("backup", nodes)
     node = _env_vector(node, batch, _I64, device, "node")
     value = _env_vector(value, batch, torch.float32, device, "value")
     iters_ptr = _iters_ptr(iters, device)
@@ -299,5 +290,5 @@ def _launch_backup(tree, node, value, iters):
             node.data_ptr(), value.data_ptr(), scratch.data_ptr(), iters_ptr, nodes, batch,
             stream,
         )
-        _check_rc(rc, "backup_walk")
+        _check_rc(rc, "backup_walk", nodes)
         backup_walk.launches += 1
