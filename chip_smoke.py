@@ -78,20 +78,24 @@ ends the run with a non-zero exit.
       200 simulations, the walk), and in ``gumbel_search_batch`` at both
       under the walk, runs the kernel and its plain version on copies of
       the same inputs (S1b from the root, the PUCT entry, and from Gumbel's
-      forced root edges), bit-equal (floats by bit pattern), and in the
+      forced root edges), bit-equal (floats by bit pattern; S1a's
+      outputs include the child's terminal flag and value), and in the
       first of them every S2a call too, within ``S2_TOL``; then the main
       path, config-5 searches under both backups, with the three kernels'
       launches counted; S1b (from the root and from a forced entry) and
       S1c again on simulation 32's trees padded with unlinked slots until
       one env needs more than 48 KB of shared memory (``S1_WIDE_SLOTS``),
       and one env at the most slots that fit a block (``S1_EDGE_SLOTS``),
-      bit-equal, and one slot more refused by each wrapper; each kernel's
-      time (launches back to back, and the device's time behind a spin
-      kernel) and its plain version's on simulation 32's inputs (S1b also
-      below the root's best edge, held to plain there), beside its bound
-      (the bytes this call's walks need), the deepest walk of those
-      inputs, and an empty kernel of the walks' launch shape timed the same
-      two ways (the launch floor); then ``search_batch`` with the
+      bit-equal, and one slot more refused by each wrapper; S1a at its
+      edges (boards 5 and 24, batch 13, in place over a fresh slot and
+      over a slot that is read, and from one slot), bit-equal; each
+      kernel's time (launches back to back, and the device's time behind
+      a spin kernel) and its plain version's on simulation 32's inputs
+      (S1b also below the root's best edge, held to plain there; S1a also
+      from one slot at board 24, batch 4096, ``step_state``'s form, held to
+      plain there), beside its bound (the bytes this call's walks need),
+      the deepest walk of those inputs, and an empty kernel of each launch
+      shape timed the same two ways (the launch floor); then ``search_batch`` with the
       table and uniform evaluators of ``tests/test_mcts_exact.py`` over its
       scenarios, both backups, every kernel call held to its plain version
       again: root visits, ``root_q`` (<= 1e-5) and the walks' iteration
@@ -343,6 +347,7 @@ from twixt_for_open_spiel_tpu_torch.ops import observe as tobs
 from twixt_for_open_spiel_tpu_torch.ops import store_skeleton as sk
 from twixt_for_open_spiel_tpu_torch.ops.replay import bit_replay
 from twixt_for_open_spiel_tpu_torch.utils import profiling, serialization
+from twixt_for_open_spiel_tpu_torch.utils.timing import CLOCK_HZ, back_to_back_ms, device_ms
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -368,7 +373,7 @@ CSRC = "twixt_for_open_spiel_tpu_torch/csrc/"
 # HBM; 132 SMs at the 1.98 GHz boost clock.  The issue rates per SM and
 # clock of each instruction class are in ops/_sass.py.
 HBM_BYTES_PER_S = 3.35e12
-SMS, CLOCK_HZ = 132, 1.98e9
+SMS = 132
 
 # --- the bitboard rollout (K1, K2) ------------------------------------------
 # (board_size, batch, num_steps, seed, emit_obs): kernel vs plain version
@@ -450,6 +455,8 @@ S1_CHECK_ROWS = [(12, 512, 64, "amask", "puct"), (12, 512, 64, "walk", "puct"),
                  (24, 256, 200, "walk", "puct"), (12, 512, 64, "walk", "gumbel"),
                  (24, 256, 200, "walk", "gumbel")]
 S1_TIMED_CALL = 32  # the kernels are timed on the inputs of this simulation
+S1A_ONE_SLOT = (24, 4096)  # S1a from one slot: bit_replay's board and batch
+S1A_EDGE_BATCH = 13  # not a multiple of S1a's envs a block
 S1_REPS = 50  # launches back to back, a run
 S1_PLAIN_REPS = 3
 # the card's float32 peak outside the tensor cores (H100 SXM, NVIDIA's data sheet)
@@ -664,24 +671,6 @@ def timed_ms(fn, reps: int) -> list:
         stop.record()
         torch.cuda.synchronize()
         out.append(start.elapsed_time(stop))
-    return out
-
-
-def back_to_back_ms(fn, reps: int, runs: int = 5) -> list:
-    """Milliseconds a call of ``fn`` in each of ``runs`` runs of ``reps``
-    calls back to back between one pair of CUDA events: the host enqueues
-    the next call while the card runs one, so a short kernel's time is not
-    the wrapper's host time."""
-    out = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        out.append(start.elapsed_time(stop) / reps)
     return out
 
 
@@ -1395,32 +1384,6 @@ def s2_library(x, w, b, epilogue, residual):
     return torch.relu(y) if epilogue is not None else y
 
 
-def device_ms(fn, reps: int) -> float:
-    """The card's time a call of ``fn``: CUDA events around ``reps`` calls
-    enqueued behind a spin kernel (``torch.cuda._sleep``) that outlasts
-    the host's enqueue, so that the card runs them back to back without
-    waiting on the host.  The gaps between launches count, and so do the
-    writes a launch leaves to drain from L2 into the next one, as in a
-    net's run; torch.profiler's kernel intervals leave both out (by them a
-    ``clone`` of 256 MiB read 5.0 TB/s on an H100 80GB HBM3)."""
-    fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    enqueue_s = time.perf_counter() - t  # at least the host's enqueue of reps calls
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(1.5 * enqueue_s * CLOCK_HZ) + 100_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def rotation(fns: list):
     """A call that runs ``fns`` in turn, keeping the last ``len(fns)``
     results alive, so that no launch finds its inputs, or its output's
@@ -1590,14 +1553,19 @@ def held_to_plain(capture: dict | None = None):
         note("select_walk", diff(pairs), inputs)
         return got
 
-    def step(src, src_slot, action, dst, dst_slot, board_size, **kw):
-        require(src is dst, "the search expands in place")
+    def step(src, src_slot, action, dst, dst_slot, board_size, outcome=None, **kw):
+        require(src is dst and outcome is not None,
+                "the search expands in place, with the child's terminal flag and value")
         ref = tuple(x.clone() for x in dst)
+        ref_outcome = tuple(x.clone() for x in outcome)
         inputs = (tuple(x.clone() for x in dst), src_slot.clone(), action.clone(), dst_slot,
-                  board_size)
-        want = tstep.bit_step_reference(ref, src_slot, action, ref, dst_slot, board_size, **kw)
-        got = real["bit_step"](src, src_slot, action, dst, dst_slot, board_size, **kw)
-        note("bit_step", diff(list(zip(dst, ref)) + [(got, want.contiguous())]), inputs)
+                  board_size, tuple(x.clone() for x in outcome))
+        want = tstep.bit_step_reference(ref, src_slot, action, ref, dst_slot, board_size,
+                                        outcome=ref_outcome, **kw)
+        got = real["bit_step"](src, src_slot, action, dst, dst_slot, board_size,
+                               outcome=outcome, **kw)
+        pairs = list(zip(dst, ref)) + list(zip(outcome, ref_outcome)) + [(got, want.contiguous())]
+        note("bit_step", diff(pairs), inputs)
         return got
 
     def backup(tree, node, value, iters=None):
@@ -1675,10 +1643,11 @@ def s1_bounds(captured: dict, card: str) -> dict:
     this call's walks need) over 3.35 TB/s, against its float operations
     over the float32 peak.  Returns name -> (bound_ms, bound_by)."""
     out = {}
-    src, slot, action, dst_slot, n = captured["bit_step"]
+    src, slot, action, dst_slot, n, _ = captured["bit_step"]
     b = action.shape[0]
-    # a source slot in, the stepped slot out, the slot, action and mask
-    nbytes = 2 * bit_state_bytes(n, b) + 16 * b + b * n * n
+    # a source slot in, the stepped slot out, the slot, action, mask and
+    # the child's terminal flag and value
+    nbytes = 2 * bit_state_bytes(n, b) + 16 * b + b * n * n + 5 * b
     out["bit_step"] = (nbytes / HBM_BYTES_PER_S * 1e3, "bytes")
 
     out["select_walk"] = select_bound(*captured["select_walk"])
@@ -1759,6 +1728,51 @@ def wide_tree_path(captured: dict) -> None:
             "each walk refuses one env past a block's shared memory, launching nothing")
 
 
+def s1a_edges_path(dev) -> None:
+    """S1a at the edges of its launch, kernel against plain version, bit for
+    bit: boards 5 and 24 at ``S1A_EDGE_BATCH`` envs (the last block part
+    filled; at board 5 the one-slot compid tensor has an odd count), from
+    per-env slots in place, into a fresh slot and over slot 0, which some
+    envs read, with the terminal flags and values; and from one slot
+    (``src=None``) into fresh buffers, compid aligned and starting 2 bytes
+    past a 4-byte boundary (its first and last halves have no word of the
+    tensor around them)."""
+    b = S1A_EDGE_BATCH
+    env = torch.arange(b, device=dev)
+    for n in (5, 24):
+        # three source slots of states 2, n and 3n plies in, and an empty one
+        states = [tbit.bit_random_rollout(seed, n, plies, tbit.bit_reset(n, b, dev))[0]
+                  for seed, plies in ((1, 2), (2, n), (3, 3 * n))]
+        bufs = tuple(torch.cat([*x, torch.zeros_like(x[0])])
+                     for x in zip(*(tstep.one_slot(st) for st in states)))
+        slot = torch.randint(0, 3, (b,), generator=torch.Generator(device=dev).manual_seed(n),
+                             device=dev)
+        action = tbit.sample_bits(tstep.gather_slots(bufs, slot), n, tbit.rollout_noise(n, 0, env))
+        for dst_slot in (3, 0):
+            got, ref = (tuple(x.clone() for x in bufs) for _ in range(2))
+            out, ref_out = ((torch.zeros((b, 4), dtype=torch.bool, device=dev),
+                             torch.full((b, 4), 7.0, device=dev)) for _ in range(2))
+            legal = tstep.bit_step(got, slot, action, got, dst_slot, n, outcome=out)
+            want = tstep.bit_step_reference(ref, slot, action, ref, dst_slot, n, outcome=ref_out)
+            note_s1("bit_step", diff(list(zip(got, ref)) + list(zip(out, ref_out))
+                                     + [(legal, want.contiguous())]))
+        one = tstep.one_slot(states[1])
+        # compid also as a view that starts 2 bytes past a 4-byte boundary
+        compid = one[1]
+        shifted = torch.empty(compid.numel() + 1, dtype=compid.dtype, device=dev)[1:]
+        shifted = shifted.view(compid.shape).copy_(compid)
+        action = tbit.sample_bits(states[1], n, tbit.rollout_noise(n, 1, env))
+        for src in (one, (one[0], shifted, one[2])):
+            fresh, ref = (tuple(torch.empty_like(x) for x in one) for _ in range(2))
+            legal = tstep.bit_step(src, None, action, fresh, 0, n)
+            want = tstep.bit_step_reference(src, None, action, ref, 0, n)
+            note_s1("bit_step", diff(list(zip(fresh, ref)) + [(legal, want.contiguous())]))
+    torch.cuda.synchronize()
+    report_s1_equal(f"S1a at boards 5 and 24, batch {b}: per-env slots in place (into a fresh "
+                    "slot, and over slot 0, which envs read) and one slot into fresh buffers "
+                    "(compid aligned, and 2 bytes past a 4-byte boundary)")
+
+
 def search_kernels_path(dev, card: str) -> list:
     """Phase 13 (first part): S1a-S1c against their plain versions on every
     call of full-width searches; the main path (config-5 searches under
@@ -1804,16 +1818,19 @@ def search_kernels_path(dev, card: str) -> list:
                            required=SEARCH_KERNELS)
     wide_tree_path(captured)
 
+    s1a_edges_path(dev)
     bounds = s1_bounds(captured, card)
-    src, slot, action, dst_slot, bn = captured["bit_step"]
+    src, slot, action, dst_slot, bn, outcome = captured["bit_step"]
     tree, a0, k0, kt0, c_puct = captured["select_walk"]
     btree, node, value = captured["backup_walk"]
     ref_bufs = tuple(x.clone() for x in src)
+    ref_outcome = tuple(x.clone() for x in outcome)
     ref_tree = mcts.Tree(*(x.clone() for x in btree))
     runs = {
-        "bit_step": (lambda: tstep.bit_step(src, slot, action, src, dst_slot, bn),
+        "bit_step": (lambda: tstep.bit_step(src, slot, action, src, dst_slot, bn,
+                                            outcome=outcome),
                      lambda: tstep.bit_step_reference(ref_bufs, slot, action, ref_bufs, dst_slot,
-                                                      bn)),
+                                                      bn, outcome=ref_outcome)),
         "select_walk": (lambda: twalk.select_walk(tree, a0, k0, kt0, c_puct),
                         lambda: twalk.select_walk_reference(tree, a0, k0, kt0, c_puct)),
         "backup_walk": (lambda: twalk.backup_walk(btree, node, value),
@@ -1842,22 +1859,43 @@ def search_kernels_path(dev, card: str) -> list:
              "select_walk below the root": f"deepest walk {int(sel_iters) - 1} descents "
                                            "below the given entry",
              "backup_walk": f"longest walk {int(bk_iters)} nodes"}
-    # the launch floor: an empty kernel of the walks' launch shape (4 envs a
-    # block at these slots), enqueued by a bare ctypes call
+    # S1a from one slot into fresh buffers (step_state's form, bit_replay's
+    # shape), held to plain once
+    on, ob = S1A_ONE_SLOT
+    o_src = tstep.one_slot(s1_roots(on, ob, dev))
+    o_action = tbit.sample_bits(tstep.slot_as(o_src, (ob,)), on,
+                                tbit.rollout_noise(on, 0, torch.arange(ob, device=dev)))
+    o_dst, o_ref = (tuple(torch.empty_like(x) for x in o_src) for _ in range(2))
+    runs["bit_step one slot"] = (
+        lambda: tstep.bit_step(o_src, None, o_action, o_dst, 0, on, legal=False),
+        lambda: tstep.bit_step_reference(o_src, None, o_action, o_ref, 0, on, legal=False))
+    runs["bit_step one slot"][0]()
+    runs["bit_step one slot"][1]()
+    note_s1("bit_step", diff(list(zip(o_dst, o_ref))))
+    report_s1_equal(f"S1a from one slot at n={on} batch={ob}")
+    # one source slot in, the stepped slot out, the actions
+    bounds["bit_step one slot"] = (
+        (2 * bit_state_bytes(on, ob) + 8 * ob) / HBM_BYTES_PER_S * 1e3, "bytes")
+    where = {"bit_step one slot": f"from one slot into fresh buffers (step_state's form) at "
+                                  f"n={on} batch={ob}"}
+    # the launch floor: an empty kernel of each launch shape (the walks' 4
+    # envs a block at these slots; S1a's), enqueued by a bare ctypes call
     empty = _cuda.load("search").twixt_search_empty
     empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    shape = (-(-b // 4), 128)
+    envs = _cuda.envs_per_block("bit_step", dev)
+    threads = envs * 32
     stream = torch.cuda.current_stream(dev).cuda_stream
+    for what, shape in (("S1b, S1c", (-(-b // 4), 128)), ("S1a", (-(-b // envs), threads)),
+                        ("S1a one slot", (-(-ob // envs), threads))):
+        def floor():
+            return empty(*shape, stream)
 
-    def floor():
-        return empty(*shape, stream)
-
-    floor()
-    floor_ms = statistics.median(back_to_back_ms(floor, S1_REPS))
-    floor_dev = device_ms(floor, S1_REPS)
-    print(f"[S1 floor] empty kernel <<<{shape[0]}, {shape[1]}>>>: {floor_ms} ms a launch "
-          f"({S1_REPS} back to back), device {floor_dev} ms a launch (behind a spin kernel) "
-          f"[{card}]")
+        floor()
+        floor_ms = statistics.median(back_to_back_ms(floor, S1_REPS))
+        floor_dev = device_ms(floor, S1_REPS)
+        print(f"[S1 floor] {what}: empty kernel <<<{shape[0]}, {shape[1]}>>>: {floor_ms} ms a "
+              f"launch ({S1_REPS} back to back), device {floor_dev} ms a launch (behind a spin "
+              f"kernel) [{card}]")
     reports = []
     for name, (kernel, plain) in runs.items():
         kernel()  # warm-up
@@ -1867,10 +1905,11 @@ def search_kernels_path(dev, card: str) -> list:
         plain_ms = statistics.median(timed_ms(plain, S1_PLAIN_REPS))
         bound_ms, by = bounds[name]
         short = name.split()[0]
-        print(f"[S1 rate] {letter[short]} {name} on simulation {S1_TIMED_CALL}'s inputs of the "
-              f"config-5 search (n={n} batch={b}): kernel {ms} ms a launch ({S1_REPS} back to "
-              f"back), device {dev_ms} ms a launch (behind a spin kernel), plain {plain_ms} ms; "
-              f"bound {bound_ms} ms ({by}); launches on the main path {counts[letter[short]]}"
+        at = where.get(name, f"on simulation {S1_TIMED_CALL}'s inputs of the config-5 search "
+                             f"(n={n} batch={b})")
+        print(f"[S1 rate] {letter[short]} {name} {at}: kernel {ms} ms a launch ({S1_REPS} back "
+              f"to back), device {dev_ms} ms a launch (behind a spin kernel), plain {plain_ms} "
+              f"ms; bound {bound_ms} ms ({by}); launches on the main path {counts[letter[short]]}"
               f"{'; ' + walks[name] if name in walks else ''} [{card}]")
         if name != short:
             continue  # a second form of one kernel: the kernels line has one entry a kernel

@@ -19,14 +19,14 @@ import torch
 
 from twixt_for_open_spiel_tpu_torch import arena_checkpoints as xarena
 from twixt_for_open_spiel_tpu_torch import arena_gate_agreement as agree
-from twixt_for_open_spiel_tpu_torch import bench_bitboard, bench_fused_bit
+from twixt_for_open_spiel_tpu_torch import bench_bit_step, bench_bitboard, bench_fused_bit
 from twixt_for_open_spiel_tpu_torch import bench_search_scaling as scaling
 from twixt_for_open_spiel_tpu_torch import bench_selfplay
 from twixt_for_open_spiel_tpu_torch.models import mcts
 from twixt_for_open_spiel_tpu_torch.models.network import create_net, init_params
 from twixt_for_open_spiel_tpu_torch.models.selfplay import make_optimizer
 from twixt_for_open_spiel_tpu_torch.ops.bitboard import bit_reset
-from twixt_for_open_spiel_tpu_torch.utils import serialization
+from twixt_for_open_spiel_tpu_torch.utils import serialization, timing
 
 torch.set_num_threads(1)
 
@@ -147,8 +147,32 @@ def test_fused_bit_refuses_tiles(capsys):
     assert "K1 takes no tile" in capsys.readouterr().err
 
 
+def test_bit_step_bench_quick(capsys):
+    """Both S1a forms through this build's wrapper (the plain version on the
+    CPU) equal the plain version on the recorded inputs."""
+    assert bench_bit_step.main(["--quick"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 2 and all("plain version True" in x for x in lines)
+
+
+def test_bit_step_bench_others_and_timers(tmp_path, capsys):
+    """``--other`` takes only a directory that holds the package's S1a
+    source; a worker's timers are ``utils/timing.py``'s, loaded by path."""
+    with pytest.raises(SystemExit) as exit_:
+        bench_bit_step.parse_args(["--quick", f"--other={tmp_path}"])
+    assert exit_.value.code == 2 and "no twixt_for_open_spiel_tpu_torch/csrc/bit_step.cu" in \
+        capsys.readouterr().err
+    args = bench_bit_step.parse_args(["--quick", "--other=.", "--other=."])
+    assert args.other == [".", "."]
+    timer = bench_bit_step.timing()
+    assert timer.__file__ == str(bench_bit_step.PKG / "utils" / "timing.py")
+    assert timer.CLOCK_HZ == timing.CLOCK_HZ
+    assert all(callable(getattr(timer, name)) for name in ("device_ms", "back_to_back_ms"))
+
+
 @pytest.mark.parametrize("module,argv", [
     (bench_fused_bit, []), (bench_bitboard, []), (bench_selfplay, []), (scaling, []),
+    (bench_bit_step, ["--other=."]),
     (xarena, ["--a=x", "--b=y"]), (agree, ["--ckpt=x", "--board_size=8"])])
 def test_no_card_without_quick_exits_1(module, argv, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -33,8 +33,10 @@ path through the staged parent row, its lane-parallel signed adds, and
 the last block's trailing +0.0 and count; the slot indexing.
 """
 
+import ctypes
 import functools
 import re
+import types
 
 import jax
 import jax.numpy as jnp
@@ -49,6 +51,7 @@ from twixt_for_open_spiel_tpu_torch.models import mcts as tmcts
 from twixt_for_open_spiel_tpu_torch.ops import _cuda
 from twixt_for_open_spiel_tpu_torch.ops import bit_step as tstep
 from twixt_for_open_spiel_tpu_torch.ops import bitboard as tbit
+from twixt_for_open_spiel_tpu_torch.ops import geometry as tgeo
 from twixt_for_open_spiel_tpu_torch.ops import search_walk as twalk
 
 torch.set_num_threads(1)
@@ -121,9 +124,10 @@ def jax_tree(tree) -> jmcts.Tree:
 
 @functools.partial(jax.jit, static_argnums=(5, 6))
 def jax_expand(planes, compid, scalars, node_action, dst_slot, n, dense):
-    """JAX's expansion of one simulation (mcts.py:371-383, 438): the parent
+    """JAX's expansion of one simulation (mcts.py:371-391, 438): the parent
     slot gathered (the dense form or the gather, as ``dense`` says), stepped,
-    the child's legal mask, the slot written."""
+    the child's terminal flag and value (mcts.py:380-388), the child's legal
+    mask, the slot written."""
     node, action = node_action
     jt = jmcts.Tree(*([None] * 12), planes=planes, compid=compid, scalars=scalars)
     saved = jmcts._DENSE_GATHER_MAX_NODES
@@ -133,10 +137,19 @@ def jax_expand(planes, compid, scalars, node_action, dst_slot, n, dense):
     finally:
         jmcts._DENSE_GATHER_MAX_NODES = saved
     child = jbit.step_bits(parent, n, action)
+    child_terminal = child.result != jmcts.geo.RESULT_OPEN
+    parent_player = jnp.clip(parent.current_player, 0, 1)
+    res = child.result
+    term_val = jnp.where(
+        res == jmcts.geo.RESULT_RED_WIN + parent_player,
+        1.0,
+        jnp.where(res == jmcts.geo.RESULT_DRAW, 0.0, -1.0),
+    )
+    term_val = jnp.where(child_terminal, term_val, 0.0)
     player = jnp.clip(child.current_player, 0, 1)
     legal = jnp.moveaxis(jbit.bit_legal_mask_flat(child, player, n), 0, -1)
     jt = jmcts._set_node_state(jt, dst_slot, child)
-    return jt.planes, jt.compid, jt.scalars, legal
+    return jt.planes, jt.compid, jt.scalars, legal, child_terminal, term_val
 
 
 @functools.partial(jax.jit, static_argnums=4)
@@ -267,20 +280,37 @@ def step_calls(name, seed=0):
     return n, calls, revisits
 
 
+def outcome_rows(src) -> tuple:
+    """The tree's terminal and tval rows for ``src``'s slots, [B, S], filled
+    with values no step writes (True, 7.0)."""
+    slots, b = src[0].shape[0], src[0].shape[-1]
+    return torch.ones((b, slots), dtype=torch.bool), torch.full((b, slots), 7.0)
+
+
 @pytest.mark.parametrize("dense", [True, False], ids=["dense", "gather"])
 @pytest.mark.parametrize("name", list(CASES))
 def test_bit_step_reference_matches_jax(name, dense):
     n, calls, revisits = step_calls(name)
     assert revisits > 0
+    terminals = 0
     for src, slot, action, dst_slot in calls:
         dst = tuple(x.clone() for x in src)
-        legal = tstep.bit_step_reference(src, slot, action, dst, dst_slot, n)
-        planes, compid, scalars, want_legal = jax_expand(
+        terminal, tval = outcome_rows(src)
+        legal = tstep.bit_step_reference(src, slot, action, dst, dst_slot, n,
+                                         outcome=(terminal, tval))
+        planes, compid, scalars, want_legal, want_term, want_tval = jax_expand(
             jnp.asarray(src[0].numpy().astype(np.uint32)), jnp.asarray(src[1].numpy()),
             jnp.asarray(src[2].numpy()), (i32(slot), i32(action)), jnp.int32(dst_slot), n, dense)
         for got, want in zip(dst, (planes, compid, scalars)):
             assert same_bits(got, want)
         assert same_bits(legal.contiguous(), want_legal)
+        # the child's terminal flag and value in column dst_slot, no other
+        assert same_bits(terminal[:, dst_slot].contiguous(), want_term)
+        assert same_bits(tval[:, dst_slot].contiguous(), want_tval)
+        others = torch.arange(terminal.shape[1]) != dst_slot
+        assert bool(terminal[:, others].all()) and bool((tval[:, others] == 7.0).all())
+        terminals += int(terminal[:, dst_slot].sum())
+    assert terminals > 0 or n > 5  # board 5's searches reach terminal children
 
 
 def test_bit_step_wrapper_on_cpu_is_the_plain_version():
@@ -364,6 +394,173 @@ def test_bit_step_slot_layout_model():
         for a in range(cells):
             model[e, a] = (pl[mover[e], a // n + 3, e] >> (a % n + 3)) & 1
     assert np.array_equal(model, legal.numpy())
+
+
+def bit_step_constants() -> dict:
+    """S1a's launch and shared-memory constants as ``csrc/bit_step.cu`` and
+    the step's header set them."""
+    text = (_cuda.CSRC / "bit_step.cu").read_text() + (_cuda.CSRC / "bit_step.cuh").read_text()
+    out = {name: int(re.search(rf"constexpr int {name} = (\d+)", text).group(1))
+           for name in ("ENVS_PER_BLOCK", "SCALAR_WORDS", "PAD", "NUM_PLANES", "NUM_SCALARS",
+                        "MIN_N", "MAX_N")}
+    out["SMEM_LIMIT"] = eval(re.search(r"constexpr int SMEM_LIMIT = ([\d *]+);", text).group(1))
+    out["GEO_LEN"] = eval(re.search(r"constexpr int GEO_LEN = ([\d +*]+);", text).group(1))
+    return out
+
+
+S1A = bit_step_constants()
+
+
+def round_up(v, a):
+    return (v + a - 1) // a * a
+
+
+def s1a_layout(n: int) -> dict:
+    """S1a's shared memory for board ``n`` (bytes): the geometry table, then
+    a region an env (its Env: planes and compid; the compid words as
+    copied, a u32 a cell; its scalars) of ``stride`` bytes."""
+    p = n + 2 * S1A["PAD"]
+    env_bytes = round_up(S1A["NUM_PLANES"] * p * 4 + n * n * 2, 16)
+    scalars = env_bytes + n * n * 4
+    stride = round_up(scalars + S1A["SCALAR_WORDS"] * 4, 32) + 16
+    geo_bytes = round_up(S1A["GEO_LEN"] * 4, 16)
+    return {"stage": env_bytes, "scalars": scalars, "stride": stride, "geo": geo_bytes,
+            "total": geo_bytes + S1A["ENVS_PER_BLOCK"] * stride}
+
+
+def test_bit_step_kernel_constants():
+    """Eight envs a block (a planes word of eight envs is one 32-byte
+    sector), every board's block within 48 KB (no opt-in), each env's region
+    4 mod 8 words long, so that a warp's copy (8 envs x 4 rows) meets 32
+    banks."""
+    assert S1A["ENVS_PER_BLOCK"] * 4 == 32 and S1A["SMEM_LIMIT"] == 48 * 1024
+    envs = S1A["ENVS_PER_BLOCK"]
+    for n in range(S1A["MIN_N"], S1A["MAX_N"] + 1):
+        lay = s1a_layout(n)
+        assert lay["total"] <= S1A["SMEM_LIMIT"]
+        assert lay["stride"] % 32 == 16 and lay["geo"] % 16 == 0
+        words = lay["stride"] // 4
+        for warp in range(envs):
+            t = np.arange(warp * WARP, (warp + 1) * WARP)
+            banks = ((t % envs) * words + t // envs) % 32
+            assert len(set(banks.tolist())) == WARP
+
+
+def test_bit_step_geometry_table_is_k1s(monkeypatch):
+    """S1a's ``__constant__`` geometry table has no copy of its own in the
+    source: the wrapper fills it once a device from ``_cuda.geo_table``,
+    K1's table (``geometry``'s OFFSETS then CROSSERS), GEO_LEN ints."""
+    text = (_cuda.CSRC / "bit_step.cu").read_text()
+    assert re.search(r"__constant__ int GEO_TABLE\[GEO_LEN\];", text)
+    assert "int twixt_bit_step_set_geometry(const int* table, int len)" in text
+    assert "int twixt_bit_step_envs_per_block() { return ENVS_PER_BLOCK; }" in text
+    seen = []
+
+    def set_geometry(ptr, count):
+        seen.append(list((ctypes.c_int32 * count).from_address(ptr)))
+        return 0
+
+    monkeypatch.setattr(_cuda, "load", lambda name: types.SimpleNamespace(
+        twixt_bit_step_set_geometry=set_geometry))
+    monkeypatch.setattr(tstep, "_GEOMETRY_SET", set())
+    tstep._set_geometry(3)
+    assert seen == [list(tgeo.OFFSETS.reshape(-1)) + list(tgeo.CROSSERS.reshape(-1))]
+    assert len(seen[0]) == S1A["GEO_LEN"] and tstep._GEOMETRY_SET == {3}
+
+
+def model_copy_in(src, slot, n: int, offset: int = 0) -> dict:
+    """csrc/bit_step.cu's copy-in, thread by thread: thread t of block k
+    copies rows t // 8, t // 8 + 32, ... of env 8k + t % 8 (planes words, the
+    5 scalars, and for each compid cell the aligned u32 that holds the env's
+    half, whose half it keeps: the low one at an address 0 mod 4), each from
+    its env's slot; compid starts ``offset`` halves past a 4-byte boundary,
+    and a half whose word holds no other half of the tensor (its first, its
+    last) is read alone.  Returns each env's staged planes [B, 16P], compid
+    [B, n*n], scalars [B, 5], how often each word was copied, the halves
+    read alone and whether every warp's copy of a row spans 8 neighbouring
+    envs."""
+    planes, compid, scalars = (x.numpy() for x in src)
+    slots, _, p, b = planes.shape
+    words, cells, envs = 16 * p, n * n, S1A["ENVS_PER_BLOCK"]
+    flat_p, flat_s = planes.reshape(-1), scalars.reshape(-1)
+    flat_c = compid.reshape(-1).view(np.uint16)
+    last = flat_c.size - 1
+    # the memory around the tensor: its 4-byte words, whatever lies beside it
+    memory = np.full(round_up(offset + flat_c.size, 2), 0xBEEF, np.uint16)
+    memory[offset:offset + flat_c.size] = flat_c
+    pairs = memory.view(np.uint32)
+    got = {"planes": np.zeros((b, words), np.int32), "compid": np.zeros((b, cells), np.int16),
+           "scalars": np.zeros((b, 5), np.int32), "cover": np.zeros((b, words + cells + 5), int),
+           "alone": set(), "neighbours": True}
+    for block in range(-(-b // envs)):
+        for t in range(envs * WARP):
+            cw, row0 = t % envs, t // envs
+            env = block * envs + cw
+            if env >= b:
+                continue
+            s = 0 if slot is None else int(slot[env])
+            assert 0 <= s < slots
+            for j in range(row0, words, WARP):
+                got["planes"][env, j] = flat_p[(s * words + j) * b + env]
+                got["cover"][env, j] += 1
+            for c in range(row0, cells, WARP):
+                e = (s * cells + c) * b + env
+                high = (offset + e) & 1
+                if (e > 0) if high else (e < last):
+                    half = (int(pairs[(offset + e) >> 1]) >> (16 * high)) & 0xFFFF
+                else:
+                    half = int(flat_c[e])
+                    got["alone"].add(e)
+                got["compid"][env, c] = np.uint16(half).view(np.int16)
+                got["cover"][env, words + c] += 1
+            if row0 < 5:
+                got["scalars"][env, row0] = flat_s[(s * 5 + row0) * b + env]
+                got["cover"][env, words + cells + row0] += 1
+    # a warp's rows: threads 8r..8r+7 copy one row of the block's 8 envs,
+    # whose destination words (and, from one slot, source words) neighbour
+    for t0 in range(0, envs * WARP, envs):
+        got["neighbours"] &= [t % envs for t in range(t0, t0 + envs)] == list(range(envs))
+    return got
+
+
+def copy_in_cases():
+    """Recorded and synthetic S1a inputs, B=13 slices (not a multiple of the
+    envs a block) and ``src=None`` (one slot)."""
+    out = []
+    for name in ("n5-table-walk", "n8-table-amask"):
+        n, calls, _ = step_calls(name)
+        for src, slot, action, dst_slot in calls[::7]:
+            out.append((n, src, slot))
+            b13 = tuple(x[..., :13].contiguous() for x in src)
+            out.append((n, b13, slot[:13]))
+            out.append((n, tuple(x[:1].contiguous() for x in b13), None))
+    return out
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset-half"])
+def test_bit_step_copy_in_model(offset):
+    """The kernel's copy-in gathers each env's source slot: every planes
+    word, compid cell and scalar of it once, equal to ``gather_slots``
+    (slot 0 of one-slot buffers with ``src=None``), wherever compid starts;
+    only the tensor's first and last halves can be read alone: the last of
+    an odd count at a 4-byte boundary (board 5, B=13, one slot: 325
+    halves), the first past one."""
+    alone = set()
+    cases = copy_in_cases()
+    assert any(x[1][0].shape[-1] == 13 for x in cases)
+    for n, src, slot in cases:
+        got = model_copy_in(src, slot, n, offset)
+        assert (got["cover"] == 1).all() and got["neighbours"]
+        want = (tstep.slot_state(*(x[0] for x in src)) if slot is None
+                else tstep.gather_slots(src, slot))
+        b = src[0].shape[-1]
+        assert np.array_equal(got["planes"].T, tstep.stack_planes(want).numpy().reshape(-1, b))
+        assert np.array_equal(got["compid"].T, want.compid.numpy().reshape(-1, b))
+        assert np.array_equal(got["scalars"].T, tstep.stack_scalars(want).numpy())
+        last = src[1].numel() - 1
+        assert got["alone"] <= {0, last}
+        alone |= {"first" if e == 0 else "last" for e in got["alone"]}
+    assert alone == ({"last"} if offset == 0 else {"first", "last"})
 
 
 # --- S1b: select_walk ---------------------------------------------------------
@@ -792,6 +989,21 @@ def test_wrapper_checks():
         tstep._check_bufs(src, 6, b, src[0].device, "source")
     with pytest.raises(ValueError, match="outside"):
         tstep._check_bufs(src, 25, b, src[0].device, "source")
+
+
+def test_bit_step_wrapper_checks_outcome():
+    """The outcome rows must be the destination's [B, S_out] bool and
+    float32 rows."""
+    src, _, _, _ = recorded("n5-table-walk")["step"][0]
+    slots, b = src[0].shape[0], src[0].shape[-1]
+    terminal, tval = outcome_rows(src)
+    assert len(tstep._check_outcome((terminal, tval), b, slots, terminal.device)) == 2
+    with pytest.raises(ValueError, match="outcome tval"):
+        tstep._check_outcome((terminal, tval.double()), b, slots, terminal.device)
+    with pytest.raises(ValueError, match="outcome terminal"):
+        tstep._check_outcome((terminal[:, :-1], tval), b, slots, terminal.device)
+    with pytest.raises(ValueError, match="outcome terminal"):
+        tstep._check_outcome((terminal.t().contiguous().t(), tval), b, slots, terminal.device)
 
 
 def test_kernel_sources_and_flags():

@@ -18,12 +18,12 @@ rankings keep ``jax.lax.top_k``'s order of ties (a stable sort).
 Kernels.  A simulation runs the selection walk
 (``ops/search_walk.py::select_walk``, S1b, the PUCT root entry included),
 the expansion (``ops/bit_step.py::bit_step``, S1a: the parent slot's step,
-the child's legal mask and its slot write), the evaluator, the tree's
-writes and the backup (the ancestor masks as torch ops, or
-``backup_walk``, S1c).  On the card each of S1a-S1c is one CUDA launch and
-a simulation makes no host read; on the CPU their plain versions run,
-whose walks read ``any()`` once an iteration, as JAX's ``while_loop``s
-test it.  ``return_stats`` counts
+the child's legal mask, its slot write, its terminal flag and value), the
+evaluator, the tree's writes and the backup (the ancestor masks as torch
+ops, or ``backup_walk``, S1c).  On the card each of S1a-S1c is one CUDA
+launch and a simulation makes no host read; on the CPU their plain
+versions run, whose walks read ``any()`` once an iteration, as JAX's
+``while_loop``s test it.  ``return_stats`` counts
 the walks' lockstep iterations (the deepest env's depth plus one) on the
 device and reads them once, at the end.
 
@@ -44,6 +44,7 @@ from twixt_for_open_spiel_tpu_torch.models.network import masked_policy
 from twixt_for_open_spiel_tpu_torch.ops import geometry as geo
 from twixt_for_open_spiel_tpu_torch.ops.bit_step import (
     bit_step,
+    outcome_value,
     slot_state,
     stack_planes,
     stack_scalars,
@@ -154,14 +155,6 @@ def _init_tree(bs: BitState, batch: int, nodes: int, a_dim: int, root_value,
     )
 
 
-def _outcome_value(result: torch.Tensor, player: torch.Tensor) -> torch.Tensor:
-    """+1 if ``player`` won, 0 on a draw, -1 otherwise (float32)."""
-    return torch.where(
-        result == geo.RESULT_RED_WIN + player, 1.0,
-        torch.where(result == geo.RESULT_DRAW, 0.0, -1.0),
-    )
-
-
 def _make_simulate(*, params, generator, evaluator, board_size: int, batch: int,
                    nodes: int, a_dim: int, c_puct: float, use_amask: bool, dev,
                    root_entry=None, fresh_base: int = 1, iters=None):
@@ -198,22 +191,22 @@ def _make_simulate(*, params, generator, evaluator, board_size: int, batch: int,
         revisit = existing_kid >= 0
 
         # --- expansion: one batched engine step from the parent slots into
-        # slot new_node, unconditionally; for revisit envs the slot holds
-        # unlinked garbage (linked=False keeps it out of every child-side pass)
+        # slot new_node, unconditionally, with the child's terminal flag and
+        # value (the parent's view) in column new_node; for revisit envs the
+        # slot holds unlinked garbage (linked=False keeps it out of every
+        # child-side pass)
         bufs = (tree.planes, tree.compid, tree.scalars)
-        child_legal = bit_step(bufs, leaf_parent, action, bufs, new_node, board_size)
+        child_legal = bit_step(bufs, leaf_parent, action, bufs, new_node, board_size,
+                               outcome=(tree.terminal, tree.tval))
         child_state = slot_state(tree.planes[new_node], tree.compid[new_node],
                                  tree.scalars[new_node])
-        child_terminal = child_state.result != geo.RESULT_OPEN
-        parent_player = tree.scalars[:, 0].gather(0, leaf_parent[None])[0].clamp(0, 1)
-        term_val = torch.where(
-            child_terminal, _outcome_value(child_state.result, parent_player), 0.0)
+        child_terminal = tree.terminal[:, new_node]
 
         logits, value = evaluator(params, child_state, generator)
         prior = masked_policy(logits, child_legal)
         # leaf value from the perspective of the player to move at the
         # child; a terminal value is the parent's, so negated
-        backup_value = torch.where(child_terminal, -term_val, value)
+        backup_value = torch.where(child_terminal, -tree.tval[:, new_node], value)
         node_id = torch.where(revisit, existing_kid, new_node)
 
         e_prior_new = tree.uprior[env, leaf_parent, action]  # >= 0: live edge
@@ -230,8 +223,6 @@ def _make_simulate(*, params, generator, evaluator, board_size: int, batch: int,
         tree.parent[:, new_node] = leaf_parent
         tree.pa[:, new_node] = action
         tree.e_prior[:, new_node] = e_prior_new
-        tree.terminal[:, new_node] = child_terminal
-        tree.tval[:, new_node] = term_val
         tree.linked[:, new_node] = ~revisit
         root_edge = (~revisit & (leaf_parent == 0))[:, None] & (action[:, None] == iota_a)
         tree.root_child.masked_fill_(root_edge, new_node)
@@ -286,7 +277,7 @@ def one_rollout(bs: BitState, board_size: int, seed) -> torch.Tensor:
             torch.where(open_, new, old)
             for new, old in zip(bitstate_leaves(nxt), bitstate_leaves(s))
         )
-    return _outcome_value(s.result, to_move)
+    return outcome_value(s.result, to_move)
 
 
 def rollout_evaluator(board_size: int, rollout_count: int = 1):

@@ -166,7 +166,7 @@ def selfplay_chunk(params, bs: BitState, generator, *, board_size: int,
         w = torch.zeros_like(z_red)
     z_steps, w_steps = [], []
     for t in reversed(range(num_steps)):
-        z_red = torch.where(done[t], mcts._outcome_value(result[t], 0), z_red)  # red's view
+        z_red = torch.where(done[t], mcts.outcome_value(result[t], 0), z_red)  # red's view
         w = torch.where(done[t], 1.0, w)
         z_steps.append(z_red)
         w_steps.append(w)

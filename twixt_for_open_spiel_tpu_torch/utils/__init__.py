@@ -6,4 +6,6 @@
                     checkpoints (``save_training``, ``restore_training``)
   profiling.py      ``Throughput``, ``trace`` and ``annotate`` on
                     ``torch.profiler``
+  timing.py         ``device_ms`` and ``back_to_back_ms``: a short call's
+                    time on the card, with CUDA events
 """
