@@ -36,8 +36,9 @@ module's counterpart has the same name:
                               and the learner step (plain torch)
   utils/serialization.py      history replay of game states, tree
                               snapshots, training checkpoints
-  utils/profiling.py          ``Throughput``, ``trace``, ``annotate`` on
-                              ``torch.profiler``
+  utils/profiling.py          ``Throughput``, ``trace`` on ``torch.profiler``;
+                              ``annotate``, the program's spans (``SPANS``),
+                              off unless a profiler records; ``SpanTrace``
   parallel/                   the distributed learner on torch.distributed:
                               one rank a card, the env batch sharded over
                               the ranks, gradients all-reduced

@@ -61,6 +61,7 @@ from twixt_for_open_spiel_tpu_torch.ops.bitboard import (
 )
 from twixt_for_open_spiel_tpu_torch.ops.observe import bit_observation_nchw
 from twixt_for_open_spiel_tpu_torch.ops.search_walk import NO_NODE, backup_walk, select_walk
+from twixt_for_open_spiel_tpu_torch.utils.profiling import annotate
 
 _I32 = torch.int32
 _I64 = torch.int64
@@ -182,9 +183,10 @@ def _make_simulate(*, params, generator, evaluator, board_size: int, batch: int,
 
         # --- selection: every env walks down from its root entry until its
         # best edge is unexpanded or leads to a terminal child
-        entry = (None, None, None) if root_entry is None else root_entry(tree, sim)
-        leaf_parent, action, existing_kid = select_walk(
-            tree, *entry, c_puct, None if iters is None else iters[0, sim])
+        with annotate("search.select"):
+            entry = (None, None, None) if root_entry is None else root_entry(tree, sim)
+            leaf_parent, action, existing_kid = select_walk(
+                tree, *entry, c_puct, None if iters is None else iters[0, sim])
         # an existing child here is terminal (selection stops only on a
         # missing or terminal child): no expansion, its exact value is
         # backed up again
@@ -195,48 +197,51 @@ def _make_simulate(*, params, generator, evaluator, board_size: int, batch: int,
         # value (the parent's view) in column new_node; for revisit envs the
         # slot holds unlinked garbage (linked=False keeps it out of every
         # child-side pass)
-        bufs = (tree.planes, tree.compid, tree.scalars)
-        child_legal = bit_step(bufs, leaf_parent, action, bufs, new_node, board_size,
-                               outcome=(tree.terminal, tree.tval))
-        child_state = slot_state(tree.planes[new_node], tree.compid[new_node],
-                                 tree.scalars[new_node])
+        with annotate("search.expand"):
+            bufs = (tree.planes, tree.compid, tree.scalars)
+            child_legal = bit_step(bufs, leaf_parent, action, bufs, new_node, board_size,
+                                   outcome=(tree.terminal, tree.tval))
+            child_state = slot_state(tree.planes[new_node], tree.compid[new_node],
+                                     tree.scalars[new_node])
         child_terminal = tree.terminal[:, new_node]
 
-        logits, value = evaluator(params, child_state, generator)
-        prior = masked_policy(logits, child_legal)
+        with annotate("search.evaluate"):
+            logits, value = evaluator(params, child_state, generator)
+            prior = masked_policy(logits, child_legal)
         # leaf value from the perspective of the player to move at the
         # child; a terminal value is the parent's, so negated
         backup_value = torch.where(child_terminal, -tree.tval[:, new_node], value)
         node_id = torch.where(revisit, existing_kid, new_node)
 
-        e_prior_new = tree.uprior[env, leaf_parent, action]  # >= 0: live edge
-        if use_amask:
-            parent_amask = tree.amask[env, leaf_parent]  # [B, nodes]
-            parent_depth = tree.depth[env, leaf_parent]
-            tree.amask[:, new_node] = parent_amask | (iota_n == new_node)
-            tree.depth[:, new_node] = parent_depth + 1
-        # retire the expanded edge (a no-op re-retire for revisit envs): a
-        # fill, where an indexed store of a Python number would copy it to
-        # the card and wait for the copy
-        tree.uprior.view(-1).index_fill_(0, (env * nodes + leaf_parent) * a_dim + action, -1.0)
-        tree.uprior[:, new_node] = torch.where(child_legal, prior, -1.0)
-        tree.parent[:, new_node] = leaf_parent
-        tree.pa[:, new_node] = action
-        tree.e_prior[:, new_node] = e_prior_new
-        tree.linked[:, new_node] = ~revisit
-        root_edge = (~revisit & (leaf_parent == 0))[:, None] & (action[:, None] == iota_a)
-        tree.root_child.masked_fill_(root_edge, new_node)
+        with annotate("search.backup"):
+            e_prior_new = tree.uprior[env, leaf_parent, action]  # >= 0: live edge
+            if use_amask:
+                parent_amask = tree.amask[env, leaf_parent]  # [B, nodes]
+                parent_depth = tree.depth[env, leaf_parent]
+                tree.amask[:, new_node] = parent_amask | (iota_n == new_node)
+                tree.depth[:, new_node] = parent_depth + 1
+            # retire the expanded edge (a no-op re-retire for revisit envs): a
+            # fill, where an indexed store of a Python number would copy it to
+            # the card and wait for the copy
+            tree.uprior.view(-1).index_fill_(0, (env * nodes + leaf_parent) * a_dim + action, -1.0)
+            tree.uprior[:, new_node] = torch.where(child_legal, prior, -1.0)
+            tree.parent[:, new_node] = leaf_parent
+            tree.pa[:, new_node] = action
+            tree.e_prior[:, new_node] = e_prior_new
+            tree.linked[:, new_node] = ~revisit
+            root_edge = (~revisit & (leaf_parent == 0))[:, None] & (action[:, None] == iota_a)
+            tree.root_child.masked_fill_(root_edge, new_node)
 
-        # --- backup: values alternate sign per level, +backup_value at the
-        # leaf; one float add per path node in both variants
-        if use_amask:
-            path = tree.amask[env, node_id]                      # [B, nodes]
-            leaf_depth = tree.depth[env, node_id]
-            sign = 1.0 - 2.0 * ((leaf_depth[:, None] - tree.depth) & 1).float()
-            tree.visit.add_(path.to(_I32))
-            tree.value_sum.add_(torch.where(path, backup_value[:, None] * sign, 0.0))
-        else:
-            backup_walk(tree, node_id, backup_value, None if iters is None else iters[1, sim])
+            # --- backup: values alternate sign per level, +backup_value at the
+            # leaf; one float add per path node in both variants
+            if use_amask:
+                path = tree.amask[env, node_id]                      # [B, nodes]
+                leaf_depth = tree.depth[env, node_id]
+                sign = 1.0 - 2.0 * ((leaf_depth[:, None] - tree.depth) & 1).float()
+                tree.visit.add_(path.to(_I32))
+                tree.value_sum.add_(torch.where(path, backup_value[:, None] * sign, 0.0))
+            else:
+                backup_walk(tree, node_id, backup_value, None if iters is None else iters[1, sim])
 
     return simulate
 
@@ -355,29 +360,30 @@ def search_batch(params, bs: BitState, generator, *, evaluator, board_size: int,
     nodes = num_simulations + 1
     batch = bs.current_player.shape[-1]
     dev = bs.red.device
-    root_player = bs.current_player.clamp(0, 1)
-    root_legal = bit_legal_mask_flat(bs, root_player, board_size).T  # [B, A]
-    root_logits, root_value = evaluator(params, bs, generator)
-    noise = dirichlet(generator, dirichlet_alpha, (batch, a_dim), dev)
-    root_prior = masked_policy(root_logits, root_legal)
-    root_prior = torch.where(
-        root_legal,
-        (1 - dirichlet_frac) * root_prior + dirichlet_frac * noise,
-        0.0,
-    )
-    root_prior = root_prior / root_prior.sum(-1, keepdim=True).clamp_min(1e-9)
+    with annotate("search.root"):
+        root_player = bs.current_player.clamp(0, 1)
+        root_legal = bit_legal_mask_flat(bs, root_player, board_size).T  # [B, A]
+        root_logits, root_value = evaluator(params, bs, generator)
+        noise = dirichlet(generator, dirichlet_alpha, (batch, a_dim), dev)
+        root_prior = masked_policy(root_logits, root_legal)
+        root_prior = torch.where(
+            root_legal,
+            (1 - dirichlet_frac) * root_prior + dirichlet_frac * noise,
+            0.0,
+        )
+        root_prior = root_prior / root_prior.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    use_amask = _resolve_backup(backup, nodes)
-    tree = _init_tree(bs, batch, nodes, a_dim, root_value,
-                      torch.where(root_legal, root_prior, -1.0), use_amask)
-    iters = None
-    if return_stats:
-        iters = torch.zeros((2, num_simulations), dtype=_I32, device=dev)
-    simulate = _make_simulate(
-        params=params, generator=generator, evaluator=evaluator,
-        board_size=board_size, batch=batch, nodes=nodes, a_dim=a_dim,
-        c_puct=c_puct, use_amask=use_amask, dev=dev, iters=iters,
-    )
+        use_amask = _resolve_backup(backup, nodes)
+        tree = _init_tree(bs, batch, nodes, a_dim, root_value,
+                          torch.where(root_legal, root_prior, -1.0), use_amask)
+        iters = None
+        if return_stats:
+            iters = torch.zeros((2, num_simulations), dtype=_I32, device=dev)
+        simulate = _make_simulate(
+            params=params, generator=generator, evaluator=evaluator,
+            board_size=board_size, batch=batch, nodes=nodes, a_dim=a_dim,
+            c_puct=c_puct, use_amask=use_amask, dev=dev, iters=iters,
+        )
     for sim in range(num_simulations):
         simulate(sim, tree)
 
@@ -497,25 +503,26 @@ def gumbel_search_batch(params, bs: BitState, generator, *, evaluator, board_siz
     batch = bs.current_player.shape[-1]
     dev = bs.red.device
     env = torch.arange(batch, device=dev)
-    root_player = bs.current_player.clamp(0, 1)
-    root_legal = bit_legal_mask_flat(bs, root_player, board_size).T  # [B, A]
-    root_logits, root_value = evaluator(params, bs, generator)
-    root_logits = torch.where(root_legal, root_logits, -math.inf)
-    root_prior = masked_policy(root_logits, root_legal)
-    if gumbel_noise is None:
-        gumbel_noise = _draw_gumbel(generator, (batch, a_dim), dev)
-    base = torch.where(root_legal, gumbel_noise + root_logits, -math.inf)
+    with annotate("search.root"):
+        root_player = bs.current_player.clamp(0, 1)
+        root_legal = bit_legal_mask_flat(bs, root_player, board_size).T  # [B, A]
+        root_logits, root_value = evaluator(params, bs, generator)
+        root_logits = torch.where(root_legal, root_logits, -math.inf)
+        root_prior = masked_policy(root_logits, root_legal)
+        if gumbel_noise is None:
+            gumbel_noise = _draw_gumbel(generator, (batch, a_dim), dev)
+        base = torch.where(root_legal, gumbel_noise + root_logits, -math.inf)
 
-    cand_base, cand_actions = _top(base, m)                      # [B, m]
-    # envs with fewer than m legal actions: the leader fills the tail (its
-    # extra forced simulations are ordinary revisits and descents)
-    cand_valid = torch.isfinite(cand_base)
-    cand_actions = torch.where(cand_valid, cand_actions, cand_actions[:, :1])
-    cand_base = torch.where(cand_valid, cand_base, cand_base[:, :1])
+        cand_base, cand_actions = _top(base, m)                      # [B, m]
+        # envs with fewer than m legal actions: the leader fills the tail (its
+        # extra forced simulations are ordinary revisits and descents)
+        cand_valid = torch.isfinite(cand_base)
+        cand_actions = torch.where(cand_valid, cand_actions, cand_actions[:, :1])
+        cand_base = torch.where(cand_valid, cand_base, cand_base[:, :1])
 
-    use_amask = _resolve_backup(backup, nodes)
-    tree = _init_tree(bs, batch, nodes, a_dim, root_value,
-                      torch.where(root_legal, root_prior, -1.0), use_amask)
+        use_amask = _resolve_backup(backup, nodes)
+        tree = _init_tree(bs, batch, nodes, a_dim, root_value,
+                          torch.where(root_legal, root_prior, -1.0), use_amask)
 
     def node_q(tree):
         """Each node's value from its parent's perspective ([B, nodes])."""
@@ -665,114 +672,115 @@ def search_batch_reuse(params, bs: BitState, generator, tree: Tree, played, was_
         raise ValueError(
             "tree layout mismatch: build the carry with init_reuse_tree at the same "
             "num_simulations and reuse_cap")
-    use_amask = _resolve_backup(backup, nodes)
-    root_player = bs.current_player.clamp(0, 1)
-    root_legal = bit_legal_mask_flat(bs, root_player, board_size).T  # [B, A]
-    root_logits, root_value = evaluator(params, bs, generator)
-    noise = dirichlet(generator, dirichlet_alpha, (batch, a_dim), dev)
+    with annotate("search.root"):
+        use_amask = _resolve_backup(backup, nodes)
+        root_player = bs.current_player.clamp(0, 1)
+        root_legal = bit_legal_mask_flat(bs, root_player, board_size).T  # [B, A]
+        root_logits, root_value = evaluator(params, bs, generator)
+        noise = dirichlet(generator, dirichlet_alpha, (batch, a_dim), dev)
 
-    def mix_prior(p):
-        mixed = torch.where(root_legal, (1 - dirichlet_frac) * p + dirichlet_frac * noise, 0.0)
-        return mixed / mixed.sum(-1, keepdim=True).clamp_min(1e-9)
+        def mix_prior(p):
+            mixed = torch.where(root_legal, (1 - dirichlet_frac) * p + dirichlet_frac * noise, 0.0)
+            return mixed / mixed.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    # the cold root (search_batch's)
-    fresh_prior = mix_prior(masked_policy(root_logits, root_legal))
-    fresh = _init_tree(bs, batch, nodes, a_dim, root_value,
-                       torch.where(root_legal, fresh_prior, -1.0), use_amask)
+        # the cold root (search_batch's)
+        fresh_prior = mix_prior(masked_policy(root_logits, root_legal))
+        fresh = _init_tree(bs, batch, nodes, a_dim, root_value,
+                           torch.where(root_legal, fresh_prior, -1.0), use_amask)
 
-    # --- which envs re-root?
-    iota = torch.arange(nodes, device=dev)
-    played = played.long()
-    kid = tree.root_child.gather(1, played.clamp(0, a_dim - 1)[:, None])[:, 0]
-    desc = _descendant_mask(tree, kid, nodes, use_amask)
-    k_cnt = desc.sum(-1)
-    kid_ok = (kid >= 0) & ~tree.terminal.gather(1, kid.clamp_min(0)[:, None])[:, 0]
-    reuse = ~was_done & (played >= 0) & kid_ok & (k_cnt <= cap)
-    desc = desc & reuse[:, None]
+        # --- which envs re-root?
+        iota = torch.arange(nodes, device=dev)
+        played = played.long()
+        kid = tree.root_child.gather(1, played.clamp(0, a_dim - 1)[:, None])[:, 0]
+        desc = _descendant_mask(tree, kid, nodes, use_amask)
+        k_cnt = desc.sum(-1)
+        kid_ok = (kid >= 0) & ~tree.terminal.gather(1, kid.clamp_min(0)[:, None])[:, 0]
+        reuse = ~was_done & (played >= 0) & kid_ok & (k_cnt <= cap)
+        desc = desc & reuse[:, None]
 
-    # --- the compaction permutation: kid -> 0, other survivors in slot
-    # order; every other slot scatters into the dump column ``nodes``
-    not_kid = desc & (iota[None, :] != kid[:, None])
-    new_id = torch.where(iota[None, :] == kid[:, None], 0, not_kid.long().cumsum(1))
-    tgt = torch.where(desc, new_id, nodes)
-    oon = torch.zeros((batch, nodes + 1), dtype=_I64, device=dev).scatter_(
-        1, tgt, iota.expand(batch, nodes))[:, :nodes]  # old slot of each new slot
-    valid = (iota[None, :] < k_cnt[:, None]) & reuse[:, None]
+        # --- the compaction permutation: kid -> 0, other survivors in slot
+        # order; every other slot scatters into the dump column ``nodes``
+        not_kid = desc & (iota[None, :] != kid[:, None])
+        new_id = torch.where(iota[None, :] == kid[:, None], 0, not_kid.long().cumsum(1))
+        tgt = torch.where(desc, new_id, nodes)
+        oon = torch.zeros((batch, nodes + 1), dtype=_I64, device=dev).scatter_(
+            1, tgt, iota.expand(batch, nodes))[:, :nodes]  # old slot of each new slot
+        valid = (iota[None, :] < k_cnt[:, None]) & reuse[:, None]
 
-    def g(arr):  # [B, nodes] permute
-        return arr.gather(1, oon)
+        def g(arr):  # [B, nodes] permute
+            return arr.gather(1, oon)
 
-    visit_p = torch.where(valid, g(tree.visit), 0)
-    vsum_p = torch.where(valid, g(tree.value_sum), 0.0)
-    pa_p = torch.where(valid, g(tree.pa), 0)
-    e_prior_p = torch.where(valid, g(tree.e_prior), 0.0)
-    term_p = valid & g(tree.terminal)
-    tval_p = torch.where(valid, g(tree.tval), 0.0)
-    parent_p = torch.where(valid & (iota[None, :] > 0),
-                           new_id.gather(1, g(tree.parent).clamp_min(0)), NO_NODE)
-    uprior_p = torch.where(valid[:, :, None],
-                           tree.uprior.gather(1, oon[:, :, None].expand(-1, -1, a_dim)), -1.0)
+        visit_p = torch.where(valid, g(tree.visit), 0)
+        vsum_p = torch.where(valid, g(tree.value_sum), 0.0)
+        pa_p = torch.where(valid, g(tree.pa), 0)
+        e_prior_p = torch.where(valid, g(tree.e_prior), 0.0)
+        term_p = valid & g(tree.terminal)
+        tval_p = torch.where(valid, g(tree.tval), 0.0)
+        parent_p = torch.where(valid & (iota[None, :] > 0),
+                               new_id.gather(1, g(tree.parent).clamp_min(0)), NO_NODE)
+        uprior_p = torch.where(valid[:, :, None],
+                               tree.uprior.gather(1, oon[:, :, None].expand(-1, -1, a_dim)), -1.0)
 
-    # --- the new root's prior, noised again (the fresh root's mix); root
-    # children scatter by action, everything else into the dump column a_dim
-    up0 = uprior_p[:, 0, :]                                      # [B, A]
-    child_mask = valid & (parent_p == 0) & (iota[None, :] > 0)
-    col = torch.where(child_mask, pa_p, a_dim)
-    pe = torch.zeros((batch, a_dim + 1), device=dev).scatter_(1, col, e_prior_p)[:, :a_dim]
-    renorm = mix_prior(torch.where(up0 >= 0, up0, 0.0) + pe)
-    uprior_p[:, 0, :] = torch.where(up0 >= 0, renorm, -1.0)
-    e_prior_p = torch.where(child_mask, renorm.gather(1, pa_p.clamp(0, a_dim - 1)), e_prior_p)
-    root_child_p = torch.full((batch, a_dim + 1), NO_NODE, dtype=_I64, device=dev).scatter_(
-        1, col, iota.expand(batch, nodes))[:, :a_dim]
+        # --- the new root's prior, noised again (the fresh root's mix); root
+        # children scatter by action, everything else into the dump column a_dim
+        up0 = uprior_p[:, 0, :]                                      # [B, A]
+        child_mask = valid & (parent_p == 0) & (iota[None, :] > 0)
+        col = torch.where(child_mask, pa_p, a_dim)
+        pe = torch.zeros((batch, a_dim + 1), device=dev).scatter_(1, col, e_prior_p)[:, :a_dim]
+        renorm = mix_prior(torch.where(up0 >= 0, up0, 0.0) + pe)
+        uprior_p[:, 0, :] = torch.where(up0 >= 0, renorm, -1.0)
+        e_prior_p = torch.where(child_mask, renorm.gather(1, pa_p.clamp(0, a_dim - 1)), e_prior_p)
+        root_child_p = torch.full((batch, a_dim + 1), NO_NODE, dtype=_I64, device=dev).scatter_(
+            1, col, iota.expand(batch, nodes))[:, :a_dim]
 
-    # --- node states: a node-axis permute per env (batch trailing)
-    def gn(buf):
-        idx = oon.T.reshape((nodes,) + (1,) * (buf.ndim - 2) + (batch,))
-        return buf.gather(0, idx.expand(buf.shape))
+        # --- node states: a node-axis permute per env (batch trailing)
+        def gn(buf):
+            idx = oon.T.reshape((nodes,) + (1,) * (buf.ndim - 2) + (batch,))
+            return buf.gather(0, idx.expand(buf.shape))
 
-    # --- per env: the re-rooted tree where it reuses, the cold root elsewhere
-    def sel_b(re_arr, fr_arr):  # batch-leading leaves
-        return torch.where(reuse.reshape((batch,) + (1,) * (re_arr.ndim - 1)), re_arr, fr_arr)
+        # --- per env: the re-rooted tree where it reuses, the cold root elsewhere
+        def sel_b(re_arr, fr_arr):  # batch-leading leaves
+            return torch.where(reuse.reshape((batch,) + (1,) * (re_arr.ndim - 1)), re_arr, fr_arr)
 
-    def sel_t(re_arr, fr_arr):  # batch-trailing leaves (node states)
-        return torch.where(reuse.reshape((1,) * (re_arr.ndim - 1) + (batch,)), re_arr, fr_arr)
+        def sel_t(re_arr, fr_arr):  # batch-trailing leaves (node states)
+            return torch.where(reuse.reshape((1,) * (re_arr.ndim - 1) + (batch,)), re_arr, fr_arr)
 
-    if use_amask:
-        am = tree.amask.gather(1, oon[:, :, None].expand(-1, -1, nodes))
-        am = am.gather(2, oon[:, None, :].expand(-1, nodes, -1))
-        amask = sel_b(am & valid[:, :, None] & valid[:, None, :], fresh.amask)
-        depth_kid = tree.depth.gather(1, kid.clamp_min(0)[:, None])
-        depth = sel_b(torch.where(valid, g(tree.depth) - depth_kid, 0), fresh.depth)
-    else:
-        amask, depth = fresh.amask, fresh.depth
-    tree = Tree(
-        visit=sel_b(visit_p, fresh.visit),
-        value_sum=sel_b(vsum_p, fresh.value_sum),
-        uprior=sel_b(uprior_p, fresh.uprior),
-        parent=sel_b(parent_p, fresh.parent),
-        pa=sel_b(pa_p, fresh.pa),
-        e_prior=sel_b(e_prior_p, fresh.e_prior),
-        terminal=sel_b(term_p, fresh.terminal),
-        tval=sel_b(tval_p, fresh.tval),
-        linked=sel_b(valid, fresh.linked),
-        root_child=sel_b(root_child_p, fresh.root_child),
-        amask=amask,
-        depth=depth,
-        planes=sel_t(gn(tree.planes), fresh.planes),
-        compid=sel_t(gn(tree.compid), fresh.compid),
-        scalars=sel_t(gn(tree.scalars), fresh.scalars),
-    )
-    if return_stats:
-        # root visits carried over (1 for a cold root), the reuse diagnostic
-        stats = {"reused_envs": int(reuse.sum()),
-                 "inherited_visits": int(tree.visit[:, 0].sum())}
+        if use_amask:
+            am = tree.amask.gather(1, oon[:, :, None].expand(-1, -1, nodes))
+            am = am.gather(2, oon[:, None, :].expand(-1, nodes, -1))
+            amask = sel_b(am & valid[:, :, None] & valid[:, None, :], fresh.amask)
+            depth_kid = tree.depth.gather(1, kid.clamp_min(0)[:, None])
+            depth = sel_b(torch.where(valid, g(tree.depth) - depth_kid, 0), fresh.depth)
+        else:
+            amask, depth = fresh.amask, fresh.depth
+        tree = Tree(
+            visit=sel_b(visit_p, fresh.visit),
+            value_sum=sel_b(vsum_p, fresh.value_sum),
+            uprior=sel_b(uprior_p, fresh.uprior),
+            parent=sel_b(parent_p, fresh.parent),
+            pa=sel_b(pa_p, fresh.pa),
+            e_prior=sel_b(e_prior_p, fresh.e_prior),
+            terminal=sel_b(term_p, fresh.terminal),
+            tval=sel_b(tval_p, fresh.tval),
+            linked=sel_b(valid, fresh.linked),
+            root_child=sel_b(root_child_p, fresh.root_child),
+            amask=amask,
+            depth=depth,
+            planes=sel_t(gn(tree.planes), fresh.planes),
+            compid=sel_t(gn(tree.compid), fresh.compid),
+            scalars=sel_t(gn(tree.scalars), fresh.scalars),
+        )
+        if return_stats:
+            # root visits carried over (1 for a cold root), the reuse diagnostic
+            stats = {"reused_envs": int(reuse.sum()),
+                     "inherited_visits": int(tree.visit[:, 0].sum())}
 
-    # --- the budget, PUCT below the root
-    simulate = _make_simulate(
-        params=params, generator=generator, evaluator=evaluator,
-        board_size=board_size, batch=batch, nodes=nodes, a_dim=a_dim,
-        c_puct=c_puct, use_amask=use_amask, dev=dev, fresh_base=cap,
-    )
+        # --- the budget, PUCT below the root
+        simulate = _make_simulate(
+            params=params, generator=generator, evaluator=evaluator,
+            board_size=board_size, batch=batch, nodes=nodes, a_dim=a_dim,
+            c_puct=c_puct, use_amask=use_amask, dev=dev, fresh_base=cap,
+        )
     for sim in range(num_simulations):
         simulate(sim, tree)
 

@@ -40,6 +40,7 @@ from twixt_for_open_spiel_tpu_torch.ops.observe import (
     unpack_legal_words_flat,
     unpack_observation_nchw,
 )
+from twixt_for_open_spiel_tpu_torch.utils.profiling import annotate
 
 
 class Sample(NamedTuple):
@@ -276,9 +277,7 @@ def accumulate_grads(params, net_apply, sample: Sample, *, val_denom,
     Only one slice's activations exist at a time.  ``train_frames`` is
     summed over the slices, the other metrics averaged."""
     if microbatch == 1:
-        loss, metrics = loss_fn(params, net_apply, sample, val_denom=val_denom)
-        loss.backward()
-        return metrics
+        return _slice_grads(params, net_apply, sample, val_denom)
     t = sample.obs.shape[0]
     if t % microbatch:
         raise ValueError(f"microbatch {microbatch} does not divide the chunk's {t} steps")
@@ -286,9 +285,7 @@ def accumulate_grads(params, net_apply, sample: Sample, *, val_denom,
     per_slice = []
     for k in range(microbatch):
         part = Sample(*(x[k * size:(k + 1) * size] for x in sample))
-        loss, metrics = loss_fn(params, net_apply, part, val_denom=val_denom / microbatch)
-        loss.backward()
-        per_slice.append(metrics)
+        per_slice.append(_slice_grads(params, net_apply, part, val_denom / microbatch))
     with torch.no_grad():
         for p in params.parameters():
             if p.grad is not None:
@@ -298,6 +295,16 @@ def accumulate_grads(params, net_apply, sample: Sample, *, val_denom,
         if key == "train_frames" else torch.stack([m[key] for m in per_slice]).mean()
         for key in per_slice[0]
     }
+
+
+def _slice_grads(params, net_apply, sample: Sample, val_denom) -> dict:
+    """``loss_fn`` on ``sample`` and its gradients added into ``.grad``,
+    under the spans ``train.forward`` and ``train.backward``."""
+    with annotate("train.forward"):
+        loss, metrics = loss_fn(params, net_apply, sample, val_denom=val_denom)
+    with annotate("train.backward"):
+        loss.backward()
+    return metrics
 
 
 def train_step(params, optimizer, sample: Sample, *, net_apply=call_net,
@@ -312,5 +319,6 @@ def train_step(params, optimizer, sample: Sample, *, net_apply=call_net,
         metrics = accumulate_grads(
             params, net_apply, sample,
             val_denom=sample.weight.sum().clamp_min(1.0), microbatch=microbatch)
-    optimizer.step()
+    with annotate("train.optimizer"):
+        optimizer.step()
     return metrics

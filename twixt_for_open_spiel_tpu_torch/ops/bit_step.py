@@ -37,6 +37,7 @@ from twixt_for_open_spiel_tpu_torch.ops.bitboard import (
     step_bits_reference,
 )
 from twixt_for_open_spiel_tpu_torch.ops.state import padded_size
+from twixt_for_open_spiel_tpu_torch.utils.profiling import annotate
 
 _I32 = torch.int32
 _I64 = torch.int64
@@ -134,12 +135,13 @@ def bit_step(src: tuple, src_slot, action, dst: tuple, dst_slot: int, board_size
     action order (``bit_legal_mask_flat(child, player, n).T``), or None
     without ``legal``."""
     device = src[0].device
-    if device.type == "cpu":
-        return bit_step_reference(src, src_slot, action, dst, dst_slot, board_size,
-                                  legal=legal, outcome=outcome)
-    if device.type != "cuda":
-        raise ValueError(f"bit_step: no kernel for device {device}")
-    return _launch(src, src_slot, action, dst, dst_slot, board_size, legal, outcome)
+    with annotate("op.bit_step"):
+        if device.type == "cpu":
+            return bit_step_reference(src, src_slot, action, dst, dst_slot, board_size,
+                                      legal=legal, outcome=outcome)
+        if device.type != "cuda":
+            raise ValueError(f"bit_step: no kernel for device {device}")
+        return _launch(src, src_slot, action, dst, dst_slot, board_size, legal, outcome)
 
 
 bit_step.launches = 0  # kernel launches, counted by _launch

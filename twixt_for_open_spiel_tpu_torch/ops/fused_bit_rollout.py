@@ -38,6 +38,7 @@ from twixt_for_open_spiel_tpu_torch.ops.bitboard import (
     rollout_loop,
 )
 from twixt_for_open_spiel_tpu_torch.ops.state import padded_size
+from twixt_for_open_spiel_tpu_torch.utils.profiling import annotate
 
 _I32 = torch.int32
 _NUM_PLANES = 16
@@ -68,13 +69,14 @@ def fused_bit_rollout(seed: int, board_size: int, num_steps: int, bs: BitState,
     ``bitboard.bit_random_rollout`` for the same seed.
     """
     device = bs.red.device
-    if device.type == "cpu":
-        return fused_bit_rollout_reference(
-            seed, board_size, num_steps, bs, emit_obs=emit_obs
-        )
-    if device.type != "cuda":
-        raise ValueError(f"fused_bit_rollout: no kernel for device {device}")
-    return _launch(seed, board_size, num_steps, bs, emit_obs)
+    with annotate("op.fused_bit_rollout"):
+        if device.type == "cpu":
+            return fused_bit_rollout_reference(
+                seed, board_size, num_steps, bs, emit_obs=emit_obs
+            )
+        if device.type != "cuda":
+            raise ValueError(f"fused_bit_rollout: no kernel for device {device}")
+        return _launch(seed, board_size, num_steps, bs, emit_obs)
 
 
 fused_bit_rollout.launches = 0  # kernel launches, counted by _launch

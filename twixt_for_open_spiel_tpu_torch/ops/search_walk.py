@@ -30,6 +30,7 @@ import math
 import torch
 
 from twixt_for_open_spiel_tpu_torch.ops import _cuda
+from twixt_for_open_spiel_tpu_torch.utils.profiling import annotate
 
 NO_NODE = -1
 _I32 = torch.int32
@@ -138,11 +139,12 @@ def select_walk(tree, action, kid, kid_term, c_puct: float, iters=None):
     edge and that edge's child (-1 when unexpanded; else a terminal
     child)."""
     device = tree.visit.device
-    if device.type == "cpu":
-        return select_walk_reference(tree, action, kid, kid_term, c_puct, iters)
-    if device.type != "cuda":
-        raise ValueError(f"select_walk: no kernel for device {device}")
-    return _launch_select(tree, action, kid, kid_term, c_puct, iters)
+    with annotate("op.select_walk"):
+        if device.type == "cpu":
+            return select_walk_reference(tree, action, kid, kid_term, c_puct, iters)
+        if device.type != "cuda":
+            raise ValueError(f"select_walk: no kernel for device {device}")
+        return _launch_select(tree, action, kid, kid_term, c_puct, iters)
 
 
 select_walk.launches = 0  # kernel launches, counted by _launch_select

@@ -8,42 +8,47 @@ One ``search_batch`` at ``chip_smoke.py``'s search row (board 12, batch
 create_net's full width; the flags change the simulations and the
 backup) under ``torch.profiler`` with CPU and CUDA
 activities, after a warm-up search and one search timed without the
-profiler.  The search's parts are labelled by wrapping, for the profiled
-call only, the functions ``models/mcts.py`` calls:
+profiler.  The search's parts are the program's own spans
+(``utils/profiling.SPANS``), read from the profiler's events by
+``profiling.SpanTrace``:
 
-  select     ``select_walk`` (the PUCT root entry and the selection below
-             it, S1b)
-  expand     ``bit_step`` (the parent slot's step, the child's legal mask
-             and its slot write, S1a)
-  evaluate   the evaluator: observation and net
-  prior      ``masked_policy``
-  backup     ``backup_walk`` (S1c; the walk backup only)
+  search.root      the root's legal mask, evaluation, noise and tree
+  search.select    the root entry and the selection walk (S1b,
+                   ``op.select_walk``)
+  search.expand    the expansion (S1a, ``op.bit_step``: the parent slot's
+                   step, the child's legal mask and slot write)
+  search.evaluate  the evaluator (observation and net) and the masked prior
+  search.backup    the tree's writes and the backup (S1c under the walk
+                   backup)
 
 Prints the card's name and power limit; the search's wall time without and
-with the profiler; per label its host time, the device time of the kernels
-launched under it and its calls; the device's busy time (the union of
-kernel intervals) and its idle share of the profiled and of the unprofiled
-search; device activities and host reads (``aten::_local_scalar_dense``,
-each a sync) per simulation; the device time and launches of each kernel
-class (``CLASSES``: S2's LayerNorm kernels apart from any library
-LayerNorm, convolutions, matrix products, casts, the rest); the ten
-kernels with the most device time.  Exits non-zero without a CUDA device.
+with the profiler; per span its host time, the device time of the
+activities launched under it and its calls; the device time linked to no
+launch; the device's busy time (the union of activity intervals) and its
+idle share of the profiled and of the unprofiled search; the idle gaps by
+the innermost span; device activities per simulation and host reads
+(``aten::_local_scalar_dense`` and device-to-host copies, each a sync) per
+search; the device time and launches of each kernel class (``CLASSES``:
+S2's LayerNorm kernels apart from any library LayerNorm, convolutions,
+matrix products, casts, the rest); the ten kernels with the most device
+time, each with the innermost span that launched it.  Exits non-zero
+without a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import subprocess
 import sys
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from twixt_for_open_spiel_tpu_torch.models import mcts
 from twixt_for_open_spiel_tpu_torch.models.network import call_net, create_net
 from twixt_for_open_spiel_tpu_torch.ops import bitboard as tbit
+from twixt_for_open_spiel_tpu_torch.utils import profiling
 
 BOARD, BATCH = 12, 512
 # kernel classes by name, the first match wins: S2's kernels
@@ -60,44 +65,22 @@ CLASSES = (
     ("optimizer", ("multi_tensor_apply",)),
     ("cast and copy", ("copy", "cast")),
 )
-LABELS = {"select": "select_walk", "expand": "bit_step", "prior": "masked_policy",
-          "backup": "backup_walk"}
 
 
-def _labelled(label, fn):
-    def wrapped(*args, **kw):
-        with record_function(label):
-            return fn(*args, **kw)
-    return wrapped
+def span_trace(prof) -> profiling.SpanTrace:
+    return profiling.SpanTrace.from_events(prof.profiler.kineto_results.events())
 
 
-@contextlib.contextmanager
-def labelled_search():
-    """The mcts module's callees wrapped in profiler labels, for the block."""
-    saved = {name: getattr(mcts, name) for name in LABELS.values()}
-    try:
-        for label, name in LABELS.items():
-            setattr(mcts, name, _labelled(label, saved[name]))
-        yield
-    finally:
-        for name, fn in saved.items():
-            setattr(mcts, name, fn)
+def window(trace: profiling.SpanTrace) -> tuple:
+    """From the first program span's start to the last span's or device
+    activity's end, in ns."""
+    start = min(s for _, s, _ in trace.spans)
+    return start, max(e for _, _, e, *_ in trace.spans + trace.activities)
 
 
-def _device_us(event) -> float:
-    """Device time of the kernels an op (and the ops under it) launched."""
-    us = getattr(event, "device_time_total", None)
-    return us if us is not None else event.cuda_time_total
-
-
-def _busy_ms(kernels) -> float:
-    """Union of the kernels' [start, end) intervals, in ms."""
-    busy, end = 0.0, float("-inf")
-    for start, stop in sorted((k.time_range.start, k.time_range.end) for k in kernels):
-        if stop > end:
-            busy += stop - max(start, end)
-            end = stop
-    return busy / 1e3
+def busy_ms(trace: profiling.SpanTrace) -> float:
+    """Union of the device activities' intervals, in ms."""
+    return sum(e - s for s, e in trace.busy_intervals(*window(trace))) / 1e6
 
 
 def kernel_class(name: str) -> str:
@@ -108,15 +91,36 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def print_classes(kernels) -> None:
+def print_spans(trace: profiling.SpanTrace, prefix: str) -> None:
+    """Host and device ms and calls of each program span named ``prefix*``,
+    the device ms linked to no launch, and the idle gaps by span."""
+    for name in profiling.SPANS:
+        if name.startswith(prefix) or name.startswith("op."):
+            if trace.span_count(name):
+                print(f"[profile] span {name}: host {trace.span_host_seconds(name) * 1e3} ms, "
+                      f"device {trace.device_seconds_under(name) * 1e3} ms, "
+                      f"calls {trace.span_count(name)}")
+    print(f"[profile] device {trace.device_seconds() * 1e3} ms in all, "
+          f"{trace.unlinked_seconds() * 1e3} ms linked to no launch")
+    for name, sec in trace.idle_gaps(*window(trace))[:8]:
+        print(f"[profile] idle under {name}: {sec * 1e3} ms")
+
+
+def print_classes(trace: profiling.SpanTrace) -> None:
     """Device time and launches of each kernel class, the largest first."""
     by_class = {}
-    for k in kernels:
-        label = kernel_class(k.name)
+    for name, start, end, _ in trace.activities:
+        label = kernel_class(name)
         total, count = by_class.get(label, (0.0, 0))
-        by_class[label] = (total + k.time_range.elapsed_us(), count + 1)
-    for label, (us, count) in sorted(by_class.items(), key=lambda kv: -kv[1][0]):
-        print(f"[profile] class {label}: device {us / 1e3} ms, launches {count}")
+        by_class[label] = (total + (end - start) / 1e6, count + 1)
+    for label, (ms, count) in sorted(by_class.items(), key=lambda kv: -kv[1][0]):
+        print(f"[profile] class {label}: device {ms} ms, launches {count}")
+
+
+def print_kernels(trace: profiling.SpanTrace, k: int) -> None:
+    """The ``k`` (launching span, kernel) pairs with the most device time."""
+    for span, name, sec in trace.by_launching_span(k):
+        print(f"[profile] kernel {name[:90]} under {span}: device {sec * 1e3} ms")
 
 
 def profile_search(dev, sims: int = 64, backup: str = "auto") -> None:
@@ -138,37 +142,24 @@ def profile_search(dev, sims: int = 64, backup: str = "auto") -> None:
     search(evaluate)
     plain_ms = (time.perf_counter() - t0) * 1e3
 
-    with labelled_search(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, _, stats = search(_labelled("evaluate", evaluate))
+        _, _, stats = search(evaluate)
         prof_ms = (time.perf_counter() - t0) * 1e3
 
-    labels = ("select", "expand", "evaluate", "prior", "backup")
-    events = prof.events()
-    # device activities, without the labels' own ranges on the device timeline
-    kernels = [e for e in events if e.device_type.name == "CUDA" and e.name not in labels
-               and not getattr(e, "is_user_annotation", False)]
-    reads = sum(e.name == "aten::_local_scalar_dense" for e in events)
-    busy = _busy_ms(kernels)
+    trace = span_trace(prof)
+    busy = busy_ms(trace)
     print(f"[profile] search_batch n={n} batch={b} sims={sims} backup={backup}: wall "
           f"{plain_ms} ms unprofiled ({plain_ms / sims} ms a simulation), "
           f"{prof_ms} ms profiled; walks {stats}")
-    for label in labels:
-        spans = [e for e in events if e.device_type.name == "CPU" and e.name == label]
-        host = sum(e.cpu_time_total for e in spans) / 1e3
-        device = sum(_device_us(e) for e in spans) / 1e3
-        print(f"[profile] {label}: host {host} ms, device {device} ms, calls {len(spans)}")
-    print(f"[profile] device busy {busy} ms (union of kernel intervals): idle share "
+    print_spans(trace, "search.")
+    print(f"[profile] device busy {busy} ms (union of activity intervals): idle share "
           f"{1 - busy / prof_ms} of the profiled search, {1 - busy / plain_ms} of the "
-          f"unprofiled one; {len(kernels)} device activities = {len(kernels) / sims} a "
-          f"simulation; {reads} host reads = {reads / sims} a simulation")
-    print_classes(kernels)
-    by_name = {}
-    for k in kernels:
-        total, count = by_name.get(k.name, (0.0, 0))
-        by_name[k.name] = (total + k.time_range.elapsed_us(), count + 1)
-    for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
-        print(f"[profile] kernel {name[:90]}: device {us / 1e3} ms, launches {count}")
+          f"unprofiled one; {len(trace.activities)} device activities = "
+          f"{len(trace.activities) / sims} a simulation; "
+          f"{trace.host_reads_under('search.')} host reads under search spans a search")
+    print_classes(trace)
+    print_kernels(trace, 10)
 
 
 def main(argv=None) -> int:

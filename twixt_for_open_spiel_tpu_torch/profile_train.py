@@ -10,12 +10,16 @@ from ``selfplay_chunk`` at 2 simulations: the step's shapes and work do
 not depend on the targets' values.
 
 Prints the card's name and power limit; the step's wall time without and
-with the profiler; the device's busy time (the union of kernel intervals)
+with the profiler; per program span (``train.forward``, ``train.backward``,
+``train.optimizer``: ``utils/profiling.SPANS``) its host time, the device
+time of the activities launched under it and its calls, and the idle gaps
+by span; the device's busy time (the union of activity intervals)
 and idle share; the device time and launches of each kernel class
 (``profile_search.CLASSES``: S2's LayerNorm forward and backward, any
 library LayerNorm, convolutions forward and backward, matrix products,
 dtype casts and copies, the optimizer's fused loops, the rest);
-and the fifteen kernels with the most device time.  Exits non-zero without
+and the fifteen kernels with the most device time, each with the span
+that launched it.  Exits non-zero without
 a CUDA device.
 """
 
@@ -35,7 +39,13 @@ from twixt_for_open_spiel_tpu_torch.models.selfplay import (
     train_step,
 )
 from twixt_for_open_spiel_tpu_torch.ops import bitboard as tbit
-from twixt_for_open_spiel_tpu_torch.profile_search import _busy_ms, print_classes
+from twixt_for_open_spiel_tpu_torch.profile_search import (
+    busy_ms,
+    print_classes,
+    print_kernels,
+    print_spans,
+    span_trace,
+)
 
 ROW = (12, 512, 32, 64, 4)  # board, batch, chunk steps, channels, blocks
 
@@ -61,20 +71,16 @@ def profile_train(dev) -> None:
         step()
         prof_ms = (time.perf_counter() - t0) * 1e3
 
-    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"
-               and not getattr(e, "is_user_annotation", False)]
-    busy = _busy_ms(kernels)
+    trace = span_trace(prof)
+    busy = busy_ms(trace)
     print(f"[profile] train_step n={n} frames={steps * b} net {ch}x{blocks} bf16: wall "
           f"{plain_ms} ms unprofiled, {prof_ms} ms profiled; device busy {busy} ms (union of "
-          f"kernel intervals): idle share {1 - busy / prof_ms} of the profiled step, "
-          f"{1 - busy / plain_ms} of the unprofiled one; {len(kernels)} device activities")
-    print_classes(kernels)
-    by_name = {}
-    for k in kernels:
-        total, count = by_name.get(k.name, (0.0, 0))
-        by_name[k.name] = (total + k.time_range.elapsed_us(), count + 1)
-    for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
-        print(f"[profile] kernel {name[:100]}: device {us / 1e3} ms, launches {count}")
+          f"activity intervals): idle share {1 - busy / prof_ms} of the profiled step, "
+          f"{1 - busy / plain_ms} of the unprofiled one; {len(trace.activities)} device "
+          f"activities")
+    print_spans(trace, "train.")
+    print_classes(trace)
+    print_kernels(trace, 15)
 
 
 def main() -> int:
